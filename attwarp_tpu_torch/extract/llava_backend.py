@@ -1,0 +1,111 @@
+"""LLaVA extraction backend (counterpart of
+``attwarp_tpu/extract/llava_backend.py``).
+
+``extract(images, questions) -> (maps (B, n, n), texts)`` and the
+answer-only ``answer_batch`` over ``models/llava.py``. Images are either a
+``(B, S, S, C)`` tensor already resized to the vision tower's input (floats
+in [0, 1] or integers in [0, 255]), as the pipeline passes them, or a
+sequence of host images, which are resized on the model's device first.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from attwarp_tpu_torch.extract.offsets import left_pad
+from attwarp_tpu_torch.extract.prompts import build_prompt
+from attwarp_tpu_torch.extract.resize import resize_images_batch
+from attwarp_tpu_torch.models.clip_vit import CLIP_MEAN, CLIP_STD
+from attwarp_tpu_torch.models.llava import LlavaModel
+
+
+class LlavaBackend:
+    def __init__(self, model: LlavaModel, tokenizer=None,
+                 extract_layer: int = 20, kv_quant: bool = False):
+        self.model = model
+        # anything with encode(text, add_special_tokens) and
+        # decode(ids, skip_special_tokens): the port's DryRunTokenizer or a
+        # transformers tokenizer
+        self.tokenizer = tokenizer
+        self.extract_layer = extract_layer
+        # int8 KV cache (the '+kv8' suffix): decode attention through K3
+        self.kv_quant = kv_quant
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    @property
+    def image_size(self) -> int:
+        return self.model.cfg.vision.image_size
+
+    def build_ids(self, question: str) -> List[int]:
+        """One question -> unpadded expanded prompt ids (llava_v1 template,
+        ``<image>`` expanded to num_image_tokens ids, HF style)."""
+        if self.tokenizer is None:
+            raise RuntimeError("LlavaBackend needs a tokenizer for text-level calls")
+        pre, post = build_prompt(question, "llava_v1").split("<image>")
+        cfg = self.model.cfg
+        return (self.tokenizer.encode(pre, add_special_tokens=True)
+                + [cfg.image_token_index] * cfg.num_image_tokens
+                + self.tokenizer.encode(post, add_special_tokens=False))
+
+    def _pixels(self, images) -> torch.Tensor:
+        """Images -> CLIP-normalized (B, S, S, 3) f32 on the model's device."""
+        S = self.image_size
+        if not (isinstance(images, torch.Tensor) and images.ndim == 4
+                and tuple(images.shape[1:3]) == (S, S)):
+            images = resize_images_batch(list(images), S, self.device)
+        x = images.to(self.device)
+        x = x.to(torch.float32) / 255.0 if not x.is_floating_point() else x.to(torch.float32)
+        mean = torch.as_tensor(CLIP_MEAN, device=x.device)
+        std = torch.as_tensor(CLIP_STD, device=x.device)
+        return (x - mean) / std
+
+    def _prepare(self, images, questions):
+        """Prompts -> expanded, left-padded ids (B, T), mask (B, T) bool,
+        image-span starts (B,) and CLIP-normalized pixels."""
+        cfg = self.model.cfg
+        padded, mask = left_pad([self.build_ids(q) for q in questions],
+                                pad_id=cfg.pad_token_id, bucket=64)
+        ids = np.asarray(padded, np.int64)
+        img_start = np.argmax(ids == cfg.image_token_index, axis=1)
+        dev = self.device
+        return (torch.as_tensor(ids, device=dev),
+                torch.as_tensor(np.asarray(mask, bool), device=dev),
+                torch.as_tensor(img_start, device=dev),
+                self._pixels(images))
+
+    def _decode(self, gen: torch.Tensor) -> List[str]:
+        texts = []
+        for row in gen.cpu().tolist():
+            out = []
+            for t in row:
+                if t == self.model.cfg.eos_token_id:
+                    break
+                out.append(t)
+            texts.append(self.tokenizer.decode(out, skip_special_tokens=True).strip())
+        return texts
+
+    def extract(self, images, questions: Sequence[str],
+                max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
+        ids, mask, img_start, pixels = self._prepare(images, questions)
+        gen, maps = self.model.generate_with_attention(
+            ids, pixels, mask, img_start, extract_layer=self.extract_layer,
+            max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
+        )
+        return maps, self._decode(gen)
+
+    def answer_batch(self, images, questions: Sequence[str],
+                     max_new_tokens: int = 64) -> List[str]:
+        """Answer-only greedy generate (``extract_layer=None``): no layer
+        builds a probabilities row and nothing is accumulated."""
+        ids, mask, img_start, pixels = self._prepare(images, questions)
+        gen, _ = self.model.generate_with_attention(
+            ids, pixels, mask, img_start, extract_layer=None,
+            max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
+        )
+        return self._decode(gen)

@@ -1,0 +1,97 @@
+"""Kernel K3: one-token attention over the int8 KV cache.
+
+``decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm_scale)``:
+
+- ``q`` (B, H, hd): the new token's queries;
+- ``k_q``/``v_q`` (L, B, S, kvH, hd) int8 and ``k_s``/``v_s`` (L, B, S, kvH)
+  f32: the WHOLE cache, read at plane ``layer`` (no plane is copied);
+- ``mask`` (B, S) bool: valid slots, including the token just written;
+- returns (B, H, hd) in q's dtype.
+
+The caller writes the current token's int8 K/V into the cache first; the
+kernel reads the updated plane. (The TPU kernel read the step-entry cache and
+merged the new token in-kernel, because an XLA custom call reading an
+updated buffer forced a copy of the cache; eager PyTorch has no such cost.)
+
+- CPU tensors: ``decode_attn_plain``, the ``_attn_quantcache`` math.
+- CUDA tensors: ``csrc/decode_attn_int8.cu`` (q in bf16, as the TPU kernel
+  takes it; head_dim 128), or an exception.
+
+Replaces the TPU kernel
+``attwarp_tpu/ops/pallas_decode_attn.py::decode_attn_quantcache``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from attwarp_tpu_torch.kernels._build import check_launch, library, require_cuda
+
+HEAD_DIM = 128   # the only head_dim the CUDA kernel takes (as on the TPU)
+
+
+def decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer: int,
+                      sm_scale: float) -> torch.Tensor:
+    """Plain PyTorch K3: scores ``(q . k_q) * k_s * sm_scale`` masked to
+    ``mask``, softmax in f32, ``out = (p * v_s) . v_q``. The dots run in q's
+    dtype, as ``models/llama.py::_attn_quantcache`` (and JAX's) do; GQA by
+    index (head h reads kv head ``h // (H // kvH)``)."""
+    _, B, S, kvH, hd = k_q.shape
+    H = q.shape[1]
+    n_rep = H // kvH
+    dt = q.dtype
+    qg = q.reshape(B, kvH, n_rep, hd)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, k_q[layer].to(dt)).to(torch.float32)
+    s = s * k_s[layer].permute(0, 2, 1)[:, :, None, :]
+    s = s * sm_scale
+    s = s.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1)
+    pv = p * v_s[layer].permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bgrs,bsgd->bgrd", pv.to(dt), v_q[layer].to(dt))
+    return out.reshape(B, H, hd)
+
+
+def decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer: int,
+                     sm_scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm_scale)
+    if k_q.ndim != 5 or k_q.shape != v_q.shape:
+        raise ValueError(f"decode_attn_int8: k_q/v_q must be (L, B, S, kvH, "
+                         f"hd); got {tuple(k_q.shape)}, {tuple(v_q.shape)}")
+    L, B, S, kvH, hd = k_q.shape
+    if q.ndim != 3 or q.shape[0] != B or q.shape[2] != hd:
+        raise ValueError(f"decode_attn_int8: q must be (B, H, hd) = ({B}, H, "
+                         f"{hd}); got {tuple(q.shape)}")
+    H = q.shape[1]
+    if hd != HEAD_DIM or H % kvH:
+        raise ValueError(f"decode_attn_int8: need head_dim {HEAD_DIM} and H "
+                         f"divisible by kvH; got hd={hd}, H={H}, kvH={kvH}")
+    if tuple(k_s.shape) != (L, B, S, kvH) or k_s.shape != v_s.shape:
+        raise ValueError("decode_attn_int8: scales must be (L, B, S, kvH)")
+    if tuple(mask.shape) != (B, S):
+        raise ValueError(f"decode_attn_int8: mask must be ({B}, {S})")
+    if not 0 <= layer < L:
+        raise ValueError(f"decode_attn_int8: layer {layer} not in [0, {L})")
+    for name, t, dt in (("k_q", k_q, torch.int8), ("v_q", v_q, torch.int8),
+                        ("k_s", k_s, torch.float32), ("v_s", v_s, torch.float32),
+                        ("mask", mask, torch.bool)):
+        if t.dtype != dt:
+            raise TypeError(f"decode_attn_int8: {name} must be {dt}, got {t.dtype}")
+    if not q.is_floating_point():
+        raise TypeError(f"decode_attn_int8: q must be floating, got {q.dtype}")
+    qb = q.to(torch.bfloat16).contiguous()
+    require_cuda("decode_attn_int8", qb, k_q, k_s, v_q, v_s, mask)
+    out = torch.empty((B, H, hd), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = library().attwarp_decode_attn_int8(
+            qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            L, B, S, H, kvH, hd, int(layer), float(sm_scale), stream,
+        )
+    check_launch(rc, "decode_attn_int8")
+    decode_attn_int8.launches += 1
+    return out.to(q.dtype)
+
+
+decode_attn_int8.launches = 0

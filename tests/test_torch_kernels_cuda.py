@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU form, so every test here is marked ``cuda`` and
+skips where ``torch.cuda.is_available()`` is false. This file imports no
+JAX, so it also runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+
+(``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
+from attwarp_tpu_torch.kernels.warp_resample import warp_resample
+from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
+from attwarp_tpu_torch.warp.warp import warp_grid_maps
+
+PIX_TOL = 1e-3 * 255   # the repo's warp budget: 1e-3 on [0, 1] pixels
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU form)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_hw,att_hw", [
+    ((4, 512, 640, 3), (500, 500), (512, 640)),   # the pipeline's warp
+    ((3, 97, 131, 1), (64, 200), (24, 24)),       # ragged, one channel, low-res maps
+])
+def test_k1_cuda_matches_plain(cuda, shape, out_hw, att_hw):
+    """Within the pixel budget: FMA contraction moves the last bits."""
+    g = np.random.default_rng(0)
+    img = torch.as_tensor((g.random(shape) * 255).astype(np.float32), device=cuda)
+    att = torch.as_tensor(g.random((shape[0], *att_hw)).astype(np.float32), device=cuda)
+    mx, my = warp_grid_maps(att, shape[1:3], out_hw[1], out_hw[0])
+    before = warp_resample.launches
+    got = warp_resample(img, mx.contiguous(), my.contiguous())
+    ref = remap_bilinear_separable(img, mx, my)
+    torch.cuda.synchronize()
+    assert warp_resample.launches == before + 1
+    assert got.shape == ref.shape == (shape[0], *out_hw, shape[3])
+    assert (got - ref).abs().max().item() <= PIX_TOL
+
+
+def _k3_case(dev, L, B, S, H, kvH, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = 128
+    k_q = torch.randint(-127, 128, (L, B, S, kvH, hd), generator=g, device=dev,
+                        dtype=torch.int8)
+    v_q = torch.randint(-127, 128, (L, B, S, kvH, hd), generator=g, device=dev,
+                        dtype=torch.int8)
+    k_s = (torch.rand((L, B, S, kvH), generator=g, device=dev) + 0.5) / 127
+    v_s = (torch.rand((L, B, S, kvH), generator=g, device=dev) + 0.5) / 127
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    ar = torch.arange(S, device=dev)[None, :]
+    pad = torch.tensor([(37 * b) % 64 for b in range(B)], device=dev)[:, None]
+    cur = torch.tensor([S - 44 + 3 * b for b in range(B)], device=dev)[:, None]
+    return q, k_q, k_s, v_q, v_s, (ar >= pad) & (ar <= cur)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,S,H,kvH", [
+    (32, 4, 704, 32, 32),   # LLaVA-1.5-7B decode with the kv8 cache
+    (2, 3, 200, 32, 4),     # GQA, S not a multiple of the 32 token groups
+], ids=["llava7b", "gqa"])
+def test_k3_cuda_matches_plain(cuda, L, B, S, H, kvH):
+    """The kernel keeps q.k and p.v in f32 where the plain version rounds
+    them to bf16, so cos > 0.999 and max-abs within 2% of the output range;
+    against the plain version in f32 it is tighter still."""
+    q, k_q, k_s, v_q, v_s, mask = _k3_case(cuda, L, B, S, H, kvH, seed=4)
+    args = (k_q, k_s, v_q, v_s, mask, L - 1, 1.0 / np.sqrt(128))
+    before = decode_attn_int8.launches
+    got = decode_attn_int8(q, *args).float()
+    ref = decode_attn_plain(q, *args).float()
+    ref32 = decode_attn_plain(q.float(), *args)
+    torch.cuda.synchronize()
+    assert decode_attn_int8.launches == before + 1
+    for r in (ref, ref32):
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), r.flatten(), dim=0)
+        assert cos.item() > 0.999
+        assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_cuda_input(cuda):
+    """On a CUDA tensor a wrapper launches its kernel or raises; it never
+    falls back to the plain version."""
+    img = torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.float64)
+    m = torch.zeros((1, 4), device=cuda)
+    with pytest.raises(TypeError):
+        warp_resample(img, m, m)
+    q, k_q, k_s, v_q, v_s, mask = _k3_case(cuda, 1, 1, 32, 2, 2, seed=5)
+    with pytest.raises(ValueError):
+        decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, 1, 0.1)   # no layer 1
