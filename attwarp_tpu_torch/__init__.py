@@ -5,8 +5,8 @@ and module names (``warp/``, ``extract/``, ``numerics/``, ``models/``,
 ``pipeline.py``) so each counterpart is easy to find, and every module is
 tested against its JAX original on the CPU (``tests/test_torch_*.py``).
 
-The TPU's Pallas kernels on the two-pass pipeline's path are hand-written
-CUDA kernels for Hopper (``csrc/*.cu``), built with ``nvcc`` at first use
+Every TPU kernel of the JAX package has a hand-written CUDA counterpart
+for Hopper (``csrc/*.cu``), built with ``nvcc`` at first use
 (``kernels/_build.py``) and launched through the wrappers in ``kernels/``.
 A wrapper given a CPU tensor runs the kernel's plain PyTorch version; given
 a CUDA tensor it launches the kernel or raises.
@@ -25,6 +25,7 @@ _LAZY = {
     "Transform": ("attwarp_tpu_torch.warp.transforms", "Transform"),
     "mota_mask": ("attwarp_tpu_torch.warp.blend", "mota_mask"),
     "LlavaBackend": ("attwarp_tpu_torch.extract.llava_backend", "LlavaBackend"),
+    "Qwen2VLBackend": ("attwarp_tpu_torch.extract.qwen2vl_backend", "Qwen2VLBackend"),
 }
 
 

@@ -12,7 +12,7 @@ finalize:  mean over accumulated steps; uniform 1/576 if no steps.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -65,11 +65,13 @@ def accumulate_step(
                      count=carry.count + act)
 
 
-def finalize(carry: AttnCarry, side: int = 24) -> torch.Tensor:
-    """Mean over steps -> (B, side, side); uniform where no step was
-    accumulated (llava.py:126-128, 404-408)."""
+def finalize(carry: AttnCarry, side: int = 24,
+             side_w: Optional[int] = None) -> torch.Tensor:
+    """Mean over steps -> (B, side, side_w or side); uniform where no step
+    was accumulated (llava.py:126-128, 404-408). ``side_w`` serves
+    rectangular grids (Qwen2-VL on non-square images)."""
     n = carry.total.shape[-1]
     uniform = torch.full_like(carry.total, 1.0 / n)
     mean = carry.total / torch.clamp(carry.count[:, None], min=1.0)
     out = torch.where(carry.count[:, None] > 0, mean, uniform)
-    return out.reshape(out.shape[0], side, side)
+    return out.reshape(out.shape[0], side, side if side_w is None else side_w)

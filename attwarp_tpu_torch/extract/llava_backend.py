@@ -17,14 +17,14 @@ import torch
 
 from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.prompts import build_prompt
-from attwarp_tpu_torch.extract.resize import resize_images_batch
-from attwarp_tpu_torch.models.clip_vit import CLIP_MEAN, CLIP_STD
+from attwarp_tpu_torch.extract.resize import clip_pixels
 from attwarp_tpu_torch.models.llava import LlavaModel
 
 
 class LlavaBackend:
     def __init__(self, model: LlavaModel, tokenizer=None,
-                 extract_layer: int = 20, kv_quant: bool = False):
+                 extract_layer: int = 20, kv_quant: bool = False,
+                 use_flash: bool = False):
         self.model = model
         # anything with encode(text, add_special_tokens) and
         # decode(ids, skip_special_tokens): the port's DryRunTokenizer or a
@@ -33,6 +33,8 @@ class LlavaBackend:
         self.extract_layer = extract_layer
         # int8 KV cache (the '+kv8' suffix): decode attention through K3
         self.kv_quant = kv_quant
+        # flash prefill (the '+flash' suffix): prefill attention through K2
+        self.use_flash = use_flash
 
     @property
     def device(self) -> torch.device:
@@ -53,18 +55,6 @@ class LlavaBackend:
                 + [cfg.image_token_index] * cfg.num_image_tokens
                 + self.tokenizer.encode(post, add_special_tokens=False))
 
-    def _pixels(self, images) -> torch.Tensor:
-        """Images -> CLIP-normalized (B, S, S, 3) f32 on the model's device."""
-        S = self.image_size
-        if not (isinstance(images, torch.Tensor) and images.ndim == 4
-                and tuple(images.shape[1:3]) == (S, S)):
-            images = resize_images_batch(list(images), S, self.device)
-        x = images.to(self.device)
-        x = x.to(torch.float32) / 255.0 if not x.is_floating_point() else x.to(torch.float32)
-        mean = torch.as_tensor(CLIP_MEAN, device=x.device)
-        std = torch.as_tensor(CLIP_STD, device=x.device)
-        return (x - mean) / std
-
     def _prepare(self, images, questions):
         """Prompts -> expanded, left-padded ids (B, T), mask (B, T) bool,
         image-span starts (B,) and CLIP-normalized pixels."""
@@ -77,7 +67,7 @@ class LlavaBackend:
         return (torch.as_tensor(ids, device=dev),
                 torch.as_tensor(np.asarray(mask, bool), device=dev),
                 torch.as_tensor(img_start, device=dev),
-                self._pixels(images))
+                clip_pixels(images, self.image_size, dev))
 
     def _decode(self, gen: torch.Tensor) -> List[str]:
         texts = []
@@ -96,6 +86,7 @@ class LlavaBackend:
         gen, maps = self.model.generate_with_attention(
             ids, pixels, mask, img_start, extract_layer=self.extract_layer,
             max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
+            use_flash=self.use_flash,
         )
         return maps, self._decode(gen)
 
@@ -107,5 +98,6 @@ class LlavaBackend:
         gen, _ = self.model.generate_with_attention(
             ids, pixels, mask, img_start, extract_layer=None,
             max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
+            use_flash=self.use_flash,
         )
         return self._decode(gen)

@@ -17,6 +17,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from attwarp_tpu_torch.models.clip_vit import CLIP_MEAN, CLIP_STD
+
 
 @lru_cache(maxsize=64)
 def linear_weight_matrix(in_len: int, out_len: int) -> np.ndarray:
@@ -85,3 +87,17 @@ def resize_images_batch(images: Sequence[np.ndarray], size: int,
         return pieces[0]
     inv = torch.as_tensor(np.argsort(order), device=device)
     return torch.cat(pieces, dim=0)[inv]
+
+
+def clip_pixels(images, size: int, device: torch.device) -> torch.Tensor:
+    """Images -> CLIP-normalized (B, size, size, 3) f32 on ``device``: a
+    (B, size, size, C) tensor is taken as it is, anything else is resized
+    on the device first."""
+    if not (isinstance(images, torch.Tensor) and images.ndim == 4
+            and tuple(images.shape[1:3]) == (size, size)):
+        images = resize_images_batch(list(images), size, device)
+    x = images.to(device)
+    x = x.to(torch.float32) / 255.0 if not x.is_floating_point() else x.to(torch.float32)
+    mean = torch.as_tensor(CLIP_MEAN, device=x.device)
+    std = torch.as_tensor(CLIP_STD, device=x.device)
+    return (x - mean) / std

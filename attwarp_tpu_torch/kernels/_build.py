@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``attwarp_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` per source, all started together, and the objects
+are linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The build runs at first use, never at import, and only from the
 sources in this checkout. Its output lands in ``build/kernels/`` at the repo
 root (listed in ``.gitignore``), named by a hash of the sources and flags, so
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _VOID = ctypes.c_void_p
@@ -36,6 +37,8 @@ _SIGNATURES = {
     # sm_scale, stream
     "attwarp_decode_attn_int8": [_VOID] * 7 + [_INT] * 7
     + [ctypes.c_float, _VOID],
+    # q, k, v, mask, out, B, T, H, kvH, hd, sm_scale, stream
+    "attwarp_flash_prefill": [_VOID] * 5 + [_INT] * 5 + [ctypes.c_float, _VOID],
 }
 
 
@@ -70,6 +73,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libattwarp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands all at once; raise with the output of any that
+    failed. Returns their combined stdout and stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these sources exists.
     ``verbose`` adds ``-Xptxas -v`` and prints nvcc's report (registers,
@@ -78,24 +93,20 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cus]
+    nvcc = find_nvcc()
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    objs = [os.path.join(work, p.stem + ".o") for p in cus]
+    tmp = os.path.join(work, out.name)
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        report = _run([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                        "-c", str(src), "-o", obj] for src, obj in zip(cus, objs)])
+        _run([[nvcc, "-shared", "-o", tmp, *objs]])
         if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
+            print(report, flush=True)
         os.replace(tmp, out)   # atomic: a reader never sees a partial file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -6,8 +6,13 @@ the JAX tree's names, as tensors: ``embed_tokens``, ``norm``, ``lm_head`` and
 ``layers[i]`` with ``input_layernorm``, ``post_attention_layernorm`` and the
 seven projection matrices ``(out, in)``.
 
-``llama_prefill`` runs the dense prefill (JAX's default; the flash prefill,
-kernel K2, is not ported yet). ``llama_decode_step`` runs one token against
+``llama_prefill`` runs the dense prefill (JAX's default) or, with
+``use_flash``, the flash prefill through kernel K2
+(``kernels/flash_prefill.py``) under JAX's gate ``flash_prefill_supported``;
+the extract layer's row then comes from the O(T) ``_last_row_probs``, so no
+(T, T) matrix is built. Both are thin over ``decoder_prefill`` and
+``decoder_decode_step``, which take the rotary cos/sin as given and so
+serve Qwen2-VL's M-RoPE decoder too. ``llama_decode_step`` runs one token against
 a dense or an int8 (``+kv8``) cache. With the int8 cache every layer except
 the extract layer reads the cache through kernel K3
 (``kernels/decode_attn.py``); the extract layer keeps the plain
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
+from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
 from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv
 
 
@@ -146,6 +152,38 @@ def _attn(q, k, v, mask, cfg: LlamaConfig, want_probs: bool):
             probs[:, :, -1, :] if want_probs else None)
 
 
+def _flash_kv_block(T: int, cap: int = 512) -> int:
+    """Largest power-of-two divisor of the sequence length, capped (JAX's
+    flash block rule, kept so both packages gate alike)."""
+    b = 1
+    while T % (b * 2) == 0 and (b * 2) <= cap:
+        b *= 2
+    return b
+
+
+def flash_prefill_supported(T: int) -> bool:
+    """JAX's gate, verbatim: flash engages from 256 tokens with a
+    power-of-two block >= 64 dividing T; shorter prompts take the dense
+    path. (Kernel K2 itself takes any T.)"""
+    return T >= 256 and _flash_kv_block(T) >= 64
+
+
+def _flash_attn(q, k, v, attention_mask, cfg):
+    """Prefill attention through kernel K2: causal, left padding as
+    segments, GQA by index. q (B,T,H,hd), k/v (B,T,kvH,hd) -> (B,T,D)."""
+    return flash_prefill(q, k, v, attention_mask, 1.0 / math.sqrt(cfg.head_dim))
+
+
+def _last_row_probs(q_last, k, mask_last, cfg):
+    """Post-softmax attention of the last query position only: (B, H, T),
+    O(B*H*T). q_last (B,H,hd), k (B,T,kvH,hd), mask_last (B,T) bool."""
+    k = _repeat_kv(k, cfg.num_attention_heads // cfg.kv_heads)
+    logits = torch.einsum("bhd,bkhd->bhk", q_last, k).to(torch.float32)
+    logits = logits * (1.0 / math.sqrt(cfg.head_dim))
+    logits = logits.masked_fill(~mask_last[:, None, :], torch.finfo(torch.float32).min)
+    return torch.softmax(logits, dim=-1)
+
+
 def _attn_quantcache(q, k_q, k_s, v_q, v_s, mask, cfg: LlamaConfig,
                      want_probs: bool):
     """Decode attention on one int8 cache plane with the scales factored out
@@ -194,30 +232,25 @@ def _check_layer(extract_layer: Optional[int], cfg: LlamaConfig) -> None:
                          f"(no such decoder layer)")
 
 
-def llama_prefill(
-    params: Dict[str, Any],
-    cfg: LlamaConfig,
-    inputs_embeds: torch.Tensor,    # (B, T, D)
-    attention_mask: torch.Tensor,   # (B, T) bool, False on left padding
-    max_seq: int,
-    extract_layer: Optional[int] = None,
-    kv_quant: bool = False,
-):
-    """Full-prompt forward. Returns (last-position logits (B, vocab) f32,
-    the KV cache allocated to ``max_seq`` slots, the extract layer's
-    last-row probabilities (B, H, T) or None).
+def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
+                    max_seq: int, extract_layer: Optional[int] = None,
+                    use_flash: bool = False, kv_quant: bool = False):
+    """The prefill body of both families, given each position's rotary
+    ``cos``/``sin`` (B, T, hd): LLaMA's from ``rope_cos_sin``, Qwen2-VL's
+    from M-RoPE. Returns (last-position logits (B, vocab) f32, the KV cache
+    allocated to ``max_seq`` slots, the extract layer's last-row
+    probabilities (B, H, T) or None).
 
-    With ``kv_quant`` the cache is int8; the prefill's own attention still
-    uses the exact keys and values, so its logits and row equal the dense
-    path's."""
+    ``use_flash`` takes kernel K2 where ``flash_prefill_supported`` says so;
+    the row then comes from ``_last_row_probs`` (the causal mask's last row
+    is ``attention_mask`` itself) and no (T, T) mask is built."""
     _check_layer(extract_layer, cfg)
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
-    # HF left-padding convention: position ids count valid tokens
-    positions = torch.clamp(torch.cumsum(attention_mask.to(torch.int64), dim=1) - 1, min=0)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
-    mask = causal & attention_mask[:, None, :]
+    flash = use_flash and flash_prefill_supported(T)
+    if not flash:
+        causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
+        mask = causal & attention_mask[:, None, :]
     if kv_quant:
         cache = init_quant_kv_cache(cfg, B, max_seq, dev)
     else:
@@ -227,9 +260,14 @@ def llama_prefill(
     row = None
     for i, lp in enumerate(params["layers"]):
         q, k, v = _qkv(lp, cfg, x, cos, sin)
-        attn, r = _attn(q, k, v, mask, cfg, want_probs=(i == extract_layer))
-        if r is not None:
-            row = r
+        if flash:
+            attn = _flash_attn(q, k, v, attention_mask, cfg)
+            if i == extract_layer:
+                row = _last_row_probs(q[:, -1], k, attention_mask, cfg)
+        else:
+            attn, r = _attn(q, k, v, mask, cfg, want_probs=(i == extract_layer))
+            if r is not None:
+                row = r
         if kv_quant:
             cache.k_q[i, :, :T], cache.k_s[i, :, :T] = quantize_kv(k)
             cache.v_q[i, :, :T], cache.v_s[i, :, :T] = quantize_kv(v)
@@ -242,25 +280,39 @@ def llama_prefill(
     return lm_logits(x[:, -1], params), cache, row
 
 
-def llama_decode_step(
+def llama_prefill(
     params: Dict[str, Any],
     cfg: LlamaConfig,
-    token_embeds: torch.Tensor,     # (B, 1, D)
-    kv,                             # LlamaKVCache | QuantKVCache, updated in place
-    cur_len: int,                   # cache slot of the new token
-    positions: torch.Tensor,        # (B,) rope position of the new token
-    kv_mask: torch.Tensor,          # (B, max_seq) bool incl. the new slot
+    inputs_embeds: torch.Tensor,    # (B, T, D)
+    attention_mask: torch.Tensor,   # (B, T) bool, False on left padding
+    max_seq: int,
     extract_layer: Optional[int] = None,
+    use_flash: bool = False,
+    kv_quant: bool = False,
 ):
-    """One token against the cache. Returns (logits (B, vocab) f32, the
-    cache, the extract layer's probabilities row (B, H, max_seq) or None).
+    """Full-prompt forward (``decoder_prefill`` with LLaMA's rotary
+    positions). With ``kv_quant`` the cache is int8; the prefill's own
+    attention still uses the exact keys and values, so its logits and row
+    equal the dense-cache path's."""
+    # HF left-padding convention: position ids count valid tokens
+    positions = torch.clamp(torch.cumsum(attention_mask.to(torch.int64), dim=1) - 1, min=0)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    return decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
+                           max_seq, extract_layer, use_flash, kv_quant)
+
+
+def decoder_decode_step(params, cfg, token_embeds, kv, cur_len: int, cos, sin,
+                        kv_mask, extract_layer: Optional[int] = None):
+    """One token against the cache, given its rotary ``cos``/``sin``
+    (B, 1, hd); the decode body of both families. Returns (logits (B, vocab)
+    f32, the cache, the extract layer's probabilities row (B, H, max_seq) or
+    None).
 
     Each layer writes its new K/V at slot ``cur_len`` in place before it
     attends. On an int8 cache, every layer but ``extract_layer`` attends
     through kernel K3 over the whole cache with its layer index."""
     _check_layer(extract_layer, cfg)
     B = token_embeds.shape[0]
-    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
     quant = isinstance(kv, QuantKVCache)
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
     x = token_embeds
@@ -290,3 +342,19 @@ def llama_decode_step(
         x = x + _mlp(lp, cfg, x)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return lm_logits(x[:, 0], params), kv, row
+
+
+def llama_decode_step(
+    params: Dict[str, Any],
+    cfg: LlamaConfig,
+    token_embeds: torch.Tensor,     # (B, 1, D)
+    kv,                             # LlamaKVCache | QuantKVCache, updated in place
+    cur_len: int,                   # cache slot of the new token
+    positions: torch.Tensor,        # (B,) rope position of the new token
+    kv_mask: torch.Tensor,          # (B, max_seq) bool incl. the new slot
+    extract_layer: Optional[int] = None,
+):
+    """``decoder_decode_step`` at LLaMA's rotary ``positions``."""
+    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    return decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
+                               kv_mask, extract_layer)

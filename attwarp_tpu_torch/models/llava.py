@@ -91,13 +91,15 @@ class LlavaModel:
         extract_layer: Optional[int] = 20,
         max_new_tokens: int = 20,
         kv_quant: bool = False,
+        use_flash: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Greedy decode. Returns (generated ids (B, max_new_tokens), maps
         (B, n, n) of the extract layer, or None when ``extract_layer`` is
         None: the answer-only path that builds no probabilities row).
 
         ``kv_quant`` keeps the cache in int8, rounded up to a multiple of 64
-        slots as in JAX (the extra slots stay masked)."""
+        slots as in JAX (the extra slots stay masked). ``use_flash`` runs
+        the prefill through kernel K2 (``llama_prefill``)."""
         cfg, tcfg, params = self.cfg, self.cfg.text, self.params
         B, T = input_ids.shape
         max_seq = T + max_new_tokens
@@ -115,7 +117,7 @@ class LlavaModel:
         embeds = embed_and_splice(params, cfg, input_ids, pixel_values)
         logits, kv, row0 = llama_prefill(
             params["llama"], tcfg, embeds, attention_mask, max_seq=max_seq,
-            extract_layer=extract_layer, kv_quant=kv_quant,
+            extract_layer=extract_layer, use_flash=use_flash, kv_quant=kv_quant,
         )
         del embeds
         carry = None if extract_layer is None else init_carry(

@@ -6,13 +6,17 @@ MLLM again on the warped image for the answer (reference ``new_method.py``
 example_workflow + main + second pass, :30-130, :508-615):
 
     from attwarp_tpu_torch.pipeline import AttWarpPipeline
-    pipe = AttWarpPipeline(backend)            # e.g. extract.llava_backend
+    pipe = AttWarpPipeline(backend)            # extract.llava_backend or
+                                               # extract.qwen2vl_backend
     result = pipe.run(images, questions)
     result.second_answers
 
-One flow, the math of the JAX ``_run_device``: pixels stay on the backend's
-device from the first resize to the second pass; masks and warps run per
-group of images that share a raw shape, a [0, 1] scale and a bucketed size.
+One flow, the math of the JAX ``_run_device`` (and of its host ``run``,
+which JAX takes for backends without device pixels, as its Qwen2-VL
+backend): pixels stay on the backend's device from the first resize to the
+second pass; masks and warps run per group of images that share a raw
+shape, a [0, 1] scale and a bucketed size. Maps are (B, n, n) for any n
+(24 for LLaVA-1.5; image_size / 28 for Qwen2-VL).
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ class AttWarpResult:
 @dataclass
 class AttWarpPipeline:
     """backend: an extraction backend with ``device``, ``image_size``,
-    ``extract`` and ``answer_batch`` (``extract.llava_backend.LlavaBackend``).
+    ``extract`` and ``answer_batch`` (``extract.llava_backend.LlavaBackend``,
+    ``extract.qwen2vl_backend.Qwen2VLBackend``).
 
     ``warp_size``: output H=W of the warped image; ``enhance_coe`` and
     ``kernel_size``: MOTA mask parameters; ``transform`` and its parameters:

@@ -4,9 +4,9 @@ Counterpart of ``attwarp_tpu/warp/grid.py`` (reference
 ``new_method.py:198-283``). Every function takes leading batch dimensions,
 so a whole batch of maps is one call (JAX vmaps the single-map form).
 
-``piecewise_linear_inverse`` uses ``torch.searchsorted``: the JAX
-comparison-matrix form exists only because ``jnp.interp`` scalarizes on a
-TPU. Both equal ``np.interp`` for monotone knots, ties included.
+``piecewise_linear_inverse`` is JAX's segment-membership form, batched: it
+equals ``np.interp`` for monotone knots, ties included, and JAX's answer on
+non-monotone knots, where ``np.interp`` is undefined.
 """
 
 from __future__ import annotations
@@ -105,26 +105,30 @@ def attention_profiles(
 
 def piecewise_linear_inverse(knots: torch.Tensor, out_len: int) -> torch.Tensor:
     """Inverse of the forward map ``knots[k] -> k`` at integer targets
-    ``0..out_len-1``: ``np.interp(arange(out_len), knots, arange(n+1))``
-    for monotone knots ``(..., n+1)``. Returns ``(..., out_len)`` f32.
+    ``0..out_len-1``, for knots ``(..., n+1)``. Returns ``(..., out_len)``
+    f32.
 
-    ``searchsorted(right=True) - 1`` picks the last knot ``<= t``, which is
-    the segment ``np.interp`` uses, so zero-width segments (ties) are never
-    interpolated across."""
+    Each target takes the mean of ``k + (t - knots[k]) / (knots[k+1] -
+    knots[k])`` over the segments ``[knots[k], knots[k+1])`` that contain
+    it, and is clamped to 0 below the first knot and to n from the last.
+    For monotone knots exactly one segment contains a target (a zero-width
+    tie contains none), which is ``np.interp``; for non-monotone knots (a
+    LOG transform whose marginals mix signs) it is JAX's answer. The
+    (..., out_len, n) membership costs little at attention widths."""
     n = knots.shape[-1] - 1
-    knots = knots.to(torch.float32).contiguous()
-    t = torch.arange(out_len, dtype=torch.float32, device=knots.device)
-    t = t.expand(*knots.shape[:-1], out_len).contiguous()
-    j = torch.searchsorted(knots, t, right=True) - 1
-    j = torch.clamp(j, 0, n - 1)
-    k0 = torch.gather(knots, -1, j)
-    k1 = torch.gather(knots, -1, j + 1)
+    knots = knots.to(torch.float32)
+    t = torch.arange(out_len, dtype=torch.float32, device=knots.device)[:, None]
+    k0 = knots[..., None, :-1]                                  # (..., 1, n)
+    k1 = knots[..., None, 1:]
+    inseg = (t >= k0) & (t < k1)                                # (..., T, n)
     denom = torch.where(k1 > k0, k1 - k0, torch.ones_like(k0))
-    res = j.to(torch.float32) + (t - k0) / denom
+    vals = torch.arange(n, dtype=torch.float32, device=knots.device) + (t - k0) / denom
+    res = torch.sum(torch.where(inseg, vals, torch.zeros_like(vals)), dim=-1)
+    res = res / torch.clamp(torch.sum(inseg, dim=-1), min=1)
     # outside-range clamping, as np.interp
+    t = t[:, 0]
     res = torch.where(t < knots[..., :1], torch.zeros_like(res), res)
-    res = torch.where(t >= knots[..., -1:], torch.full_like(res, float(n)), res)
-    return res
+    return torch.where(t >= knots[..., -1:], torch.full_like(res, float(n)), res)
 
 
 def inverse_axis_map(

@@ -3,16 +3,27 @@
 NVIDIA GPU.
 
 1. Names the card (and its power limit, from nvidia-smi); turns TF32 off.
-2. Builds the port's CUDA kernels from this checkout with nvcc.
+2. Builds the port's CUDA kernels from this checkout with nvcc (one nvcc
+   per source, all at once).
 3. Kernel K1 (warp resample) against its plain PyTorch version at the
    pipeline's shape: (4, 512, 640, 3) -> 500x500.
 4. Kernel K3 (int8-cache decode attention) against its plain version at
-   LLaVA-1.5-7B decode geometry, plus a small GQA case.
-5. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
+   LLaVA-1.5-7B and Qwen2-VL-7B decode geometry (B=4, S=704; 32/32 and
+   28/4 heads), plus a small GQA case.
+5. Kernel K2 (flash prefill) against its plain version at LLaVA-1.5-7B and
+   Qwen2-VL-7B prefill geometry (B=4, T=640; 32/32 and 28/4 heads) with
+   per-row left padding, plus a ragged T=200.
+6. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
    launch counts must show K1 and K3 on the path; its masks and warps are
-   checked against the port's CPU path.
+   checked against the port's CPU path. The LLaVA weights are then freed.
+7. The same pipeline at Qwen2-VL-7B width (random bf16 weights, 672 px,
+   24x24 maps) with the int8 cache and the flash prefill: first the flash
+   prefill against the dense one on the slice's first batch (held on an
+   f32 copy of the text weights, where the dense path is exact, and on the
+   bf16 weights against the dense path's own distance from f32), then one
+   warm-up and one timed run whose launch counts must show K1, K2 and K3.
 
 Run from the repo root:  python3 chip_smoke.py
 Exits non-zero on any failure and when no CUDA device is present. The last
@@ -22,6 +33,7 @@ each kernel with its launches, error and times.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -179,106 +191,144 @@ def phase_k3(dev):
     from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
 
     sm = 1.0 / 128 ** 0.5
-    # LLaVA-1.5-7B decode: L=32, B=4, S=704 (640-token prompt + 20, to 64s)
-    q, k_q, k_s, v_q, v_s, mask = _k3_case(dev, 32, 4, 704, 32, 32, seed=2)
-    layer = 7
-    got = decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm)
-    ref = decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm)
-    ref32 = decode_attn_plain(q.float(), k_q, k_s, v_q, v_s, mask, layer, sm)
-    torch.cuda.synchronize()
-    cos, err, mag = _compare(got, ref)
-    cos32, err32, _ = _compare(got, ref32)
-    # bf16 rounds the plain version's dots (8-bit mantissa): 2% of the
-    # output range bounds a few such roundings
-    tol = 2e-2 * mag
-    ms, plain_ms = alternate_ms(
-        lambda: decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm),
-        lambda: decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm), 50)
-    print(f"[4 K3 decode_attn_int8] L=32 B=4 S=704 H=kvH=32 hd=128 bf16: vs plain "
-          f"cos {cos:.6f} max|d| {err:.4g} (tol {tol:.4g} = 2% of max|ref| "
-          f"{mag:.4g}); vs f32 plain cos {cos32:.6f} max|d| {err32:.4g} | "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    check(cos > 0.999 and cos32 > 0.999 and err <= tol,
-          "K3 disagrees with its plain version at 7B geometry")
-    del q, k_q, k_s, v_q, v_s, mask
-
-    qg, kq, ks, vq, vs, mg = _k3_case(dev, 2, 2, 192, 32, 4, seed=3)
-    gq = decode_attn_int8(qg, kq, ks, vq, vs, mg, 1, sm)
-    rq = decode_attn_plain(qg, kq, ks, vq, vs, mg, 1, sm)
-    torch.cuda.synchronize()
-    gcos, gerr, gmag = _compare(gq, rq)
-    print(f"[4 K3 decode_attn_int8] GQA L=2 B=2 S=192 H=32 kvH=4: cos {gcos:.6f} "
-          f"max|d| {gerr:.4g} (tol {2e-2 * gmag:.4g})")
-    check(gcos > 0.999 and gerr <= 2e-2 * gmag, "K3 disagrees on the GQA case")
+    out = {}
+    # decode caches of S=704 (640-token prompt + 20, to 64s): LLaVA-1.5-7B
+    # (32 layers, 32/32 heads) and Qwen2-VL-7B (28 layers, 28 over 4 kv
+    # heads, n_rep 7); plus a small GQA case with n_rep 8
+    for name, (L, B, S, H, kvH), seed, timed in (
+            ("llava7b", (32, 4, 704, 32, 32), 2, True),
+            ("qwen7b", (28, 4, 704, 28, 4), 9, True),
+            ("gqa", (2, 2, 192, 32, 4), 3, False)):
+        q, k_q, k_s, v_q, v_s, mask = _k3_case(dev, L, B, S, H, kvH, seed=seed)
+        layer = min(7, L - 1)
+        got = decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm)
+        ref = decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm)
+        ref32 = decode_attn_plain(q.float(), k_q, k_s, v_q, v_s, mask, layer, sm)
+        torch.cuda.synchronize()
+        cos, err, mag = _compare(got, ref)
+        cos32, err32, mag32 = _compare(got, ref32)
+        # bf16 rounds the plain version's dots (8-bit mantissa): 2% of the
+        # output range bounds a few such roundings
+        tol = 2e-2 * mag
+        line = (f"[4 K3 decode_attn_int8] {name} L={L} B={B} S={S} H={H} kvH={kvH} "
+                f"hd=128 bf16: vs plain cos {cos:.6f} max|d| {err:.4g} (tol {tol:.4g} "
+                f"= 2% of max|ref| {mag:.4g}); vs f32 plain cos {cos32:.6f} max|d| "
+                f"{err32:.4g}")
+        if timed:
+            ms, plain_ms = alternate_ms(
+                lambda: decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm),
+                lambda: decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm), 50)
+            line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(line)
+        check(cos > 0.999 and cos32 > 0.999 and err <= tol and err32 <= 2e-2 * mag32,
+              f"K3 disagrees with its plain version ({name})")
+        del q, k_q, k_s, v_q, v_s, mask, got, ref, ref32
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return out
 
 
-def phase_slice(dev):
+def _k2_case(dev, B, T, H, kvH, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, T, n, 128), generator=g, device=dev).to(torch.bfloat16)
+               for n in (H, kvH, kvH))
+    # left padding that differs per row, as a batch of prompts has it
+    pad = torch.tensor([(37 * b) % 61 for b in range(B)], device=dev)[:, None]
+    return q, k, v, torch.arange(T, device=dev)[None, :] >= pad
+
+
+def phase_k2(dev):
+    import torch
+
+    from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
+
+    sm = 1.0 / 128 ** 0.5
+    out = {}
+    for name, (B, T, H, kvH), timed in (("llava7b", (4, 640, 32, 32), True),
+                                        ("qwen7b", (4, 640, 28, 4), True),
+                                        ("ragged", (3, 200, 28, 4), False)):
+        q, k, v, mask = _k2_case(dev, B, T, H, kvH, seed=8)
+        got = flash_prefill(q, k, v, mask, sm)
+        ref = flash_prefill_plain(q, k, v, mask, sm)
+        ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), mask, sm)
+        torch.cuda.synchronize()
+        cos, err, mag = _compare(got, ref)
+        cos32, err32, _ = _compare(got, ref32)
+        tol = 2e-2 * mag
+        line = (f"[5 K2 flash_prefill] {name} B={B} T={T} H={H} kvH={kvH} hd=128 bf16: "
+                f"vs plain cos {cos:.6f} max|d| {err:.4g} (tol {tol:.4g} = 2% of "
+                f"max|ref| {mag:.4g}); vs f32 plain cos {cos32:.6f} max|d| {err32:.4g}")
+        if timed:
+            ms, plain_ms = alternate_ms(
+                lambda: flash_prefill_plain(q, k, v, mask, sm),
+                lambda: flash_prefill(q, k, v, mask, sm), 20)
+            line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(line)
+        check(bool(torch.isfinite(got).all()) and cos > 0.999 and cos32 > 0.999
+              and err <= tol and err32 <= 2e-2 * ref32.abs().max().item(),
+              f"K2 disagrees with its plain version ({name})")
+        del q, k, v, mask, got, ref, ref32
+    torch.cuda.empty_cache()
+    return out
+
+
+IMAGES_SEED = 0
+QUESTIONS = ["what is the text on the label?", "what is shown here?",
+             "read the code on the tag", "what is the key phrase in the image?"]
+
+
+def _images():
+    import numpy as np
+
+    rng = np.random.default_rng(IMAGES_SEED)
+    return [(rng.random((480, 640, 3)) * 255).astype(np.uint8) for _ in range(4)]
+
+
+def _drive(tag, backend, n_side, counters, want):
+    """One warm-up run of the pipeline, then one timed run with every
+    kernel's launch count set to 0 just before it and read just after;
+    checks the counts, the outputs, and the masks and warps against the
+    port's CPU path. Returns the counts."""
     import numpy as np
     import torch
 
-    from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
     from attwarp_tpu_torch.extract.resize import resize_scale_device
-    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
-    from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
-    from attwarp_tpu_torch.kernels.warp_resample import warp_resample
-    from attwarp_tpu_torch.models.llama import LlamaConfig
-    from attwarp_tpu_torch.models.llava import LlavaConfig, LlavaModel, random_params
     from attwarp_tpu_torch.pipeline import AttWarpPipeline
     from attwarp_tpu_torch.warp.blend import mota_mask
     from attwarp_tpu_torch.warp.warp import warp_batch_by_attention
 
-    # llava-hf/llava-1.5-7b-hf geometry: CLIP-L/14-336, 32-layer 4096-wide
-    # LLaMA, vocab 32064 with the image token at 32000
-    cfg = LlavaConfig(text=LlamaConfig(vocab_size=32064), image_token_index=32000)
-    t0 = time.perf_counter()
-    params = random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
-                           torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[5 slice] random bf16 LLaVA-1.5-7B: {n_params / 1e9:.3f} B parameters "
-          f"in {time.perf_counter() - t0:.1f} s")
-    backend = TimedBackend(LlavaBackend(LlavaModel(cfg, params),
-                                        tokenizer=DryRunTokenizer(),
-                                        extract_layer=20, kv_quant=True))
     pipe = AttWarpPipeline(backend, warp_size=500, max_new_tokens=20)
-    rng = np.random.default_rng(0)
-    images = [(rng.random((480, 640, 3)) * 255).astype(np.uint8) for _ in range(4)]
-    questions = ["what is the text on the label?", "what is shown here?",
-                 "read the code on the tag", "what is the key phrase in the image?"]
-
+    images = _images()
     t0 = time.perf_counter()
-    pipe.run(images, questions)
+    pipe.run(images, QUESTIONS)
     torch.cuda.synchronize()
-    print(f"[5 slice] warm-up run {time.perf_counter() - t0:.2f} s")
+    print(f"[{tag}] warm-up run {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    warp_resample.launches = 0
-    decode_attn_int8.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    res = pipe.run(images, questions)
+    res = pipe.run(images, QUESTIONS)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {"warp_resample": warp_resample.launches,
-                "decode_attn_int8": decode_attn_int8.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    L, steps = cfg.text.num_hidden_layers, 20
-    want_k3 = steps * (L - 1) + steps * L   # pass 1 skips the extract layer
-    want_k1 = 1                             # one shape group
     p1, p2 = backend.seconds["pass1"], backend.seconds["pass2"]
-    print(f"[5 slice] maps {res.attention_maps.shape} warped {res.warped.shape} "
+    print(f"[{tag}] maps {res.attention_maps.shape} warped {res.warped.shape} "
           f"masks {res.mota_masks[0].shape} {res.mota_masks[0].dtype}")
-    print(f"[5 slice] first answers {res.first_answers}")
-    print(f"[5 slice] second answers {res.second_answers}")
-    print(f"[5 slice] launches: K1 {launches['warp_resample']} (expected {want_k1}), "
-          f"K3 {launches['decode_attn_int8']} (expected {want_k3})")
-    print(f"[5 slice] wall: total {total:.3f} s | pass 1 {p1:.3f} s | mask+warp "
+    print(f"[{tag}] first answers {res.first_answers}")
+    print(f"[{tag}] second answers {res.second_answers}")
+    print(f"[{tag}] launches: " + ", ".join(
+        f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+    print(f"[{tag}] wall: total {total:.3f} s | pass 1 {p1:.3f} s | mask+warp "
           f"and resizes {total - p1 - p2:.3f} s | pass 2 {p2:.3f} s | "
           f"{4 / total:.3f} samples/s | peak memory {peak / 2**30:.2f} GiB")
 
-    check(res.attention_maps.shape == (4, 24, 24), "maps shape")
+    check(res.attention_maps.shape == (4, n_side, n_side), "maps shape")
     check(res.warped.shape == (4, 500, 500, 3), "warped shape")
     check(bool(np.isfinite(res.attention_maps).all()), "maps not finite")
     check(bool(np.isfinite(res.warped).all()), "warped not finite")
@@ -287,8 +337,8 @@ def phase_slice(dev):
     check(all(m.shape == (512, 640) and m.dtype == np.uint8 for m in res.mota_masks),
           "mask shapes")
     check(len(res.first_answers) == 4 and len(res.second_answers) == 4, "answers")
-    check(launches["warp_resample"] == want_k1, "K1 launch count")
-    check(launches["decode_attn_int8"] == want_k3, "K3 launch count")
+    for name in counters:
+        check(launches[name] == want[name], f"{name} launch count")
 
     # the card's masks (from its maps) and warps (from its masks) against
     # the port's CPU path on the same inputs
@@ -300,11 +350,158 @@ def phase_slice(dev):
                                     500, 500).numpy()
     mask_d = int(np.abs(m_dev.astype(np.int16) - m_cpu.astype(np.int16)).max())
     warp_d = float(np.abs(res.warped - w_cpu).max())
-    print(f"[5 slice] vs CPU path: masks max|d| {mask_d} LSB (tol 1), warped "
+    print(f"[{tag}] vs CPU path: masks max|d| {mask_d} LSB (tol 1), warped "
           f"max|d| {warp_d:.4g} (tol {1e-3 * 255:.3g})")
     check(mask_d <= 1, "masks disagree with the CPU path")
     check(warp_d <= 1e-3 * 255, "warped images disagree with the CPU path")
     return launches
+
+
+def _counters():
+    from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
+    from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
+    from attwarp_tpu_torch.kernels.warp_resample import warp_resample
+
+    return {"warp_resample": warp_resample, "flash_prefill": flash_prefill,
+            "decode_attn_int8": decode_attn_int8}
+
+
+def phase_slice(dev):
+    import torch
+
+    from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from attwarp_tpu_torch.models.llama import LlamaConfig
+    from attwarp_tpu_torch.models.llava import LlavaConfig, LlavaModel, random_params
+
+    # llava-hf/llava-1.5-7b-hf geometry: CLIP-L/14-336, 32-layer 4096-wide
+    # LLaMA, vocab 32064 with the image token at 32000
+    cfg = LlavaConfig(text=LlamaConfig(vocab_size=32064), image_token_index=32000)
+    t0 = time.perf_counter()
+    params = random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                           torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[6 llava] random bf16 LLaVA-1.5-7B: {n_params / 1e9:.3f} B parameters "
+          f"in {time.perf_counter() - t0:.1f} s")
+    backend = TimedBackend(LlavaBackend(LlavaModel(cfg, params),
+                                        tokenizer=DryRunTokenizer(),
+                                        extract_layer=20, kv_quant=True))
+    L, steps = cfg.text.num_hidden_layers, 20
+    want = {"warp_resample": 1,                          # one shape group
+            "flash_prefill": 0,                          # dense prefill here
+            # pass 1 reads the extract layer without K3
+            "decode_attn_int8": steps * (L - 1) + steps * L}
+    return _drive("6 llava", backend, 24, _counters(), want)
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_f32(v) for v in tree]
+    return tree.float()
+
+
+def _qwen_flash_vs_dense(model, backend, images):
+    """Flash against dense prefill of the slice's first batch (the
+    pipeline's device-resized pixels), extract layer included.
+
+    Held on an f32 copy of the text weights, where the dense path is exact
+    and the gap is K2's own bf16 rounding: last-position logits within 1e-2
+    of their range, the extract row within 1e-4. On the bf16 weights the
+    pipeline runs, both paths round q.k to bf16 (dense in the score, flash
+    in its inputs), so the dense path itself sits above that bar from the
+    f32 dense; there flash may be at most 1.5x as far from the f32 dense as
+    the bf16 dense is, for the logits and the row alike."""
+    import torch
+
+    from attwarp_tpu_torch.extract.resize import resize_images_batch
+    from attwarp_tpu_torch.models.qwen2vl import (
+        embed_and_splice,
+        get_mrope_positions,
+        mrope_cos_sin,
+        qwen2vl_prefill,
+        qwen2vl_vision_features,
+    )
+
+    cfg, dev = model.cfg, model.device
+    pix = resize_images_batch(images, backend.image_size, dev)
+    ids, mask, patches, grid = backend._prepare(pix, QUESTIONS)
+    T = ids.shape[1]
+    feats = qwen2vl_vision_features(model.params["vision"], cfg.vision, patches, grid[1:])
+    embeds = embed_and_splice(model.params, cfg, ids, feats)
+    pos, _ = get_mrope_positions(ids.cpu().numpy(), mask.cpu().numpy(), grid,
+                                 cfg.image_token_id, cfg.vision.spatial_merge_size)
+    cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), cfg.text)
+
+    def prefill(text, x, flash):
+        logits, _, row = qwen2vl_prefill(text, cfg.text, x, mask, cos, sin, max_seq=T,
+                                         extract_layer=backend.extract_layer,
+                                         use_flash=flash)
+        return logits.float(), row.float()
+
+    def gap(a, b):
+        return (((a[0] - b[0]).abs().max() / b[0].abs().max()).item(),
+                (a[1] - b[1]).abs().max().item())
+
+    out = {"bf16": {f: prefill(model.params["text"], embeds, f) for f in (False, True)}}
+    text32 = _to_f32(model.params["text"])
+    out["f32"] = {f: prefill(text32, embeds.float(), f) for f in (False, True)}
+    del text32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rel, row_d = gap(out["f32"][True], out["f32"][False])
+    bf_rel, bf_row = gap(out["bf16"][True], out["bf16"][False])
+    d_rel, d_row = gap(out["bf16"][False], out["f32"][False])
+    f_rel, f_row = gap(out["bf16"][True], out["f32"][False])
+    print(f"[7 qwen] flash vs dense prefill, B=4 T={T}, f32 text weights: last logits "
+          f"max|d|/max|ref| {rel:.4g} (tol 1e-2); extract row max|d| {row_d:.4g} "
+          f"(tol 1e-4)")
+    print(f"[7 qwen] bf16 weights: flash vs dense {bf_rel:.4g} / {bf_row:.4g}; "
+          f"against the f32 dense: dense {d_rel:.4g} / {d_row:.4g}, flash "
+          f"{f_rel:.4g} / {f_row:.4g} (tol 1.5x dense: {1.5 * d_rel:.4g} / "
+          f"{1.5 * d_row:.4g}) (logits rel / row max|d|)")
+    check(all(bool(torch.isfinite(o[0]).all()) for w in out.values() for o in w.values()),
+          "prefill logits not finite")
+    check(rel <= 1e-2, "flash logits disagree with dense")
+    check(row_d <= 1e-4, "flash extract row disagrees with dense")
+    check(f_rel <= 1.5 * d_rel, "bf16 flash logits drift further from f32 than dense")
+    check(f_row <= 1.5 * d_row, "bf16 flash extract row drifts further from f32 than dense")
+    return T
+
+
+def phase_qwen(dev):
+    import torch
+
+    from attwarp_tpu_torch.extract.qwen2vl_backend import Qwen2VLBackend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from attwarp_tpu_torch.models.llama import flash_prefill_supported
+    from attwarp_tpu_torch.models.qwen2vl import Qwen2VLConfig, Qwen2VLModel, random_params
+
+    # Qwen/Qwen2-VL-7B-Instruct geometry (the config defaults): 32-block
+    # 1280-wide vision tower with 2x2 merge; 28-layer 3584-wide decoder,
+    # 28 query over 4 kv heads, vocab 152064
+    cfg = Qwen2VLConfig()
+    t0 = time.perf_counter()
+    params = random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                           torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[7 qwen] random bf16 Qwen2-VL-7B: {n_params / 1e9:.3f} B parameters "
+          f"in {time.perf_counter() - t0:.1f} s")
+    model = Qwen2VLModel(cfg, params)
+    inner = Qwen2VLBackend(model, tokenizer=DryRunTokenizer(), extract_layer=20,
+                           image_size=672, kv_quant=True, use_flash=True)
+    T = _qwen_flash_vs_dense(model, inner, _images())
+    check(flash_prefill_supported(T), f"T={T} takes the dense prefill")
+    L, steps = cfg.text.num_hidden_layers, 20
+    want = {"warp_resample": 1,                               # one shape group
+            "flash_prefill": 2 * L,                           # both prefills
+            # pass 1 reads the extract layer without K3
+            "decode_attn_int8": steps * (L - 1) + steps * L}
+    return _drive("7 qwen", TimedBackend(inner), inner.num_patches_side,
+                  _counters(), want)
 
 
 def _leaves(tree):
@@ -331,16 +528,31 @@ def main() -> int:
     phase_build()
     k1 = phase_k1(dev)
     k3 = phase_k3(dev)
-    launches = phase_slice(dev)
+    k2 = phase_k2(dev)
+    paths = {"llava": phase_slice(dev)}
+    gc.collect()                 # free the LLaVA weights before Qwen's
+    torch.cuda.empty_cache()
+    paths["qwen"] = phase_qwen(dev)
+
+    def launches(name):
+        return {"launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {k: p[name] for k, p in paths.items()}}
+
     kernels = [
         {"name": "warp_resample", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/warp_resample.cu",
          "replaces": "attwarp_tpu/ops/pallas_warp.py:87",
-         "launches": launches["warp_resample"], **k1},
+         **launches("warp_resample"), **k1},
+        {"name": "flash_prefill", "route": "cuda",
+         "source": "attwarp_tpu_torch/csrc/flash_prefill.cu",
+         "replaces": "attwarp_tpu/models/llama.py:218",
+         **launches("flash_prefill"), **k2["qwen7b"],
+         "llava7b": k2["llava7b"]},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/decode_attn_int8.cu",
          "replaces": "attwarp_tpu/ops/pallas_decode_attn.py:284",
-         "launches": launches["decode_attn_int8"], **k3},
+         **launches("decode_attn_int8"), **k3["llava7b"],
+         "qwen7b": k3["qwen7b"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
+from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
 from attwarp_tpu_torch.kernels.warp_resample import warp_resample
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
 from attwarp_tpu_torch.warp.warp import warp_grid_maps
@@ -68,8 +69,9 @@ def _k3_case(dev, L, B, S, H, kvH, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,B,S,H,kvH", [
     (32, 4, 704, 32, 32),   # LLaVA-1.5-7B decode with the kv8 cache
+    (28, 4, 704, 28, 4),    # Qwen2-VL-7B decode with the kv8 cache (n_rep 7)
     (2, 3, 200, 32, 4),     # GQA, S not a multiple of the 32 token groups
-], ids=["llava7b", "gqa"])
+], ids=["llava7b", "qwen7b", "gqa"])
 def test_k3_cuda_matches_plain(cuda, L, B, S, H, kvH):
     """The kernel keeps q.k and p.v in f32 where the plain version rounds
     them to bf16, so cos > 0.999 and max-abs within 2% of the output range;
@@ -88,6 +90,40 @@ def test_k3_cuda_matches_plain(cuda, L, B, S, H, kvH):
         assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
 
 
+def _k2_case(dev, B, T, H, kvH, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, T, n, 128), generator=g, device=dev).to(torch.bfloat16)
+               for n in (H, kvH, kvH))
+    pad = torch.tensor([(37 * b) % 61 for b in range(B)], device=dev)[:, None]
+    return q, k, v, torch.arange(T, device=dev)[None, :] >= pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,kvH", [
+    (4, 640, 32, 32),   # LLaVA-1.5-7B prefill
+    (4, 640, 28, 4),    # Qwen2-VL-7B prefill (GQA, n_rep 7)
+    (3, 200, 28, 4),    # ragged T: no multiple of the 64-row tiles
+], ids=["mha", "gqa", "ragged"])
+def test_k2_cuda_matches_plain(cuda, B, T, H, kvH):
+    """Left padding that differs per row. The kernel keeps q.k and p.v in f32
+    where the plain version rounds them to bf16: cos > 0.999 and max-abs
+    within 2% of the output range, against the bf16 and the f32 plain
+    version."""
+    q, k, v, mask = _k2_case(cuda, B, T, H, kvH, seed=6)
+    sm = 1.0 / np.sqrt(128)
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, mask, sm).float()
+    ref = flash_prefill_plain(q, k, v, mask, sm).float()
+    ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), mask, sm)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    assert got.shape == (B, T, H * 128) and torch.isfinite(got).all()
+    for r in (ref, ref32):
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), r.flatten(), dim=0)
+        assert cos.item() > 0.999
+        assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_cuda_input(cuda):
     """On a CUDA tensor a wrapper launches its kernel or raises; it never
@@ -99,3 +135,6 @@ def test_wrappers_reject_bad_cuda_input(cuda):
     q, k_q, k_s, v_q, v_s, mask = _k3_case(cuda, 1, 1, 32, 2, 2, seed=5)
     with pytest.raises(ValueError):
         decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, 1, 0.1)   # no layer 1
+    q2, k2, v2, m2 = _k2_case(cuda, 1, 64, 2, 2, seed=7)
+    with pytest.raises(ValueError):
+        flash_prefill(q2[..., :64], k2[..., :64], v2[..., :64], m2, 0.1)  # hd 64

@@ -64,15 +64,12 @@ def test_grid_maps_match_jax(rng, tr, inverse):
     port against JAX vmapped. f32 on both sides; 2e-5 relative covers
     reduction-order differences of the sums and cumsums.
 
-    LOG of values below 1 gives negative marginals and so non-monotone
-    knots, where np.interp (the contract of both forms) is undefined; the
-    LOG case therefore draws values above 1."""
+    The values lie below and above 1, so LOG gives marginals of both signs
+    and non-monotone knots: there np.interp is undefined and both packages
+    take the mean over the segments that contain a target."""
     jp, tp = _params(tr, inverse)
     att = (rng.random((3, 6, 9)) * 4).astype(np.float32)
-    if tr is ttr.Transform.LOG:
-        att += 1.0
-    else:
-        att[1, :, 2] = 0.0      # zero column: near-tied knots
+    att[1, :, 2] = 0.0      # zero column: near-tied knots
     jout = jax.vmap(lambda a: jgrid.attention_profiles(a, jp))(jnp.asarray(att))
     tout = tgrid.attention_profiles(_t(att), tp)
     for j, t in zip(jout, tout):
@@ -98,9 +95,9 @@ def test_degenerate_map_takes_fallback():
 
 
 def test_piecewise_linear_inverse_equals_np_interp_with_ties():
-    """searchsorted form == np.interp (and the JAX form) for monotone knots
-    with ties, below-range and at-end targets. Exact f32 arithmetic on both
-    sides: 1e-5 absolute."""
+    """== np.interp (and the JAX form) for monotone knots with ties,
+    below-range and at-end targets. Exact f32 arithmetic on both sides: 1e-5
+    absolute."""
     knots = np.array([0.0, 0.0, 1.5, 1.5, 1.5, 4.25, 7.0, 7.0, 9.0, 12.0],
                      np.float32)
     out_len = 12
@@ -184,7 +181,8 @@ def test_warp_matches_oracle(rng, transform):
 def test_port_never_imports_jax():
     """The port's modules, kernels and pipeline import no JAX."""
     code = ("import attwarp_tpu_torch.pipeline, attwarp_tpu_torch.kernels.decode_attn, "
-            "attwarp_tpu_torch.extract.tokenizer, sys; "
+            "attwarp_tpu_torch.kernels.flash_prefill, attwarp_tpu_torch.extract.tokenizer, "
+            "attwarp_tpu_torch.extract.qwen2vl_backend, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
