@@ -2,8 +2,9 @@
 
 The JAX package stays the reference; this package mirrors its subpackage
 and module names (``warp/``, ``extract/``, ``numerics/``, ``models/``,
-``pipeline.py``) so each counterpart is easy to find, and every module is
-tested against its JAX original on the CPU (``tests/test_torch_*.py``).
+``serving/``, ``cli/``, ``pipeline.py``) so each counterpart is easy to
+find, and every module is tested against its JAX original on the CPU
+(``tests/test_torch_*.py``).
 
 Every TPU kernel of the JAX package has a hand-written CUDA counterpart
 for Hopper (``csrc/*.cu``), built with ``nvcc`` at first use
@@ -26,6 +27,8 @@ _LAZY = {
     "mota_mask": ("attwarp_tpu_torch.warp.blend", "mota_mask"),
     "LlavaBackend": ("attwarp_tpu_torch.extract.llava_backend", "LlavaBackend"),
     "Qwen2VLBackend": ("attwarp_tpu_torch.extract.qwen2vl_backend", "Qwen2VLBackend"),
+    "ServeEngine": ("attwarp_tpu_torch.serving.engine", "ServeEngine"),
+    "ChunkedPrefillEngine": ("attwarp_tpu_torch.serving.chunked", "ChunkedPrefillEngine"),
 }
 
 

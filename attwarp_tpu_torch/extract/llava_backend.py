@@ -6,6 +6,8 @@ answer-only ``answer_batch`` over ``models/llava.py``. Images are either a
 ``(B, S, S, C)`` tensor already resized to the vision tower's input (floats
 in [0, 1] or integers in [0, 255]), as the pipeline passes them, or a
 sequence of host images, which are resized on the model's device first.
+``_preprocess`` gives the serving engines one image's pixels, and
+``save``/``load`` keep the checkpoint directory of ``extract/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from attwarp_tpu_torch.extract.checkpoint import load_checkpoint, save_checkpoint
 from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.prompts import build_prompt
 from attwarp_tpu_torch.extract.resize import clip_pixels
-from attwarp_tpu_torch.models.llava import LlavaModel
+from attwarp_tpu_torch.models.llava import LlavaModel, config_from_dict
 
 
 class LlavaBackend:
@@ -36,6 +39,20 @@ class LlavaBackend:
         # flash prefill (the '+flash' suffix): prefill attention through K2
         self.use_flash = use_flash
 
+    # ── checkpoints ────────────────────────────────────────────────────
+    def save(self, path) -> None:
+        """Write ``params.pt`` and ``config.json`` into directory ``path``."""
+        save_checkpoint(path, self.model.params, self.model.cfg)
+
+    @classmethod
+    def load(cls, path, device, extract_layer: int = 20,
+             tokenizer=None) -> "LlavaBackend":
+        """A backend from a directory written by ``save``, its weights on
+        ``device`` (pass a tokenizer for the text-level calls)."""
+        cfg, params = load_checkpoint(path, device, config_from_dict)
+        return cls(LlavaModel(cfg, params), tokenizer=tokenizer,
+                   extract_layer=extract_layer)
+
     @property
     def device(self) -> torch.device:
         return self.model.device
@@ -43,6 +60,12 @@ class LlavaBackend:
     @property
     def image_size(self) -> int:
         return self.model.cfg.vision.image_size
+
+    def _preprocess(self, image: np.ndarray) -> np.ndarray:
+        """One host image -> CLIP-normalized (S, S, 3) float32 pixels on the
+        host, as JAX's ``_preprocess``: to [0, 1] by dtype, resized like
+        ``jax.image.resize`` "linear" (on the model's device), normalized."""
+        return clip_pixels([image], self.image_size, self.device)[0].cpu().numpy()
 
     def build_ids(self, question: str) -> List[int]:
         """One question -> unpadded expanded prompt ids (llava_v1 template,
@@ -101,3 +124,4 @@ class LlavaBackend:
             use_flash=self.use_flash,
         )
         return self._decode(gen)
+

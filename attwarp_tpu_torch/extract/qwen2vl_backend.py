@@ -10,7 +10,9 @@ side (448 px -> 16x16, 672 px -> 24x24); the warp takes any grid.
 Images are a ``(B, S, S, C)`` tensor already resized to ``image_size``, as
 the pipeline passes them, or host images, which are resized on the model's
 device first; then CLIP-normalized (Qwen2-VL's processor uses the OpenAI
-CLIP statistics) and patchified on the device.
+CLIP statistics) and patchified on the device. ``_preprocess`` gives the
+serving engines one image's pixels, and ``save``/``load`` keep the
+checkpoint directory of ``extract/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from attwarp_tpu_torch.extract.checkpoint import load_checkpoint, save_checkpoint
 from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.resize import clip_pixels
-from attwarp_tpu_torch.models.qwen2vl import Qwen2VLModel, patchify_batch
+from attwarp_tpu_torch.models.qwen2vl import Qwen2VLModel, config_from_dict, patchify_batch
 
 
 class Qwen2VLBackend:
@@ -50,9 +53,29 @@ class Qwen2VLBackend:
                              f"{n_layers}-layer model")
         self.image_size = image_size
 
+    # ── checkpoints ────────────────────────────────────────────────────
+    def save(self, path) -> None:
+        """Write ``params.pt`` and ``config.json`` into directory ``path``."""
+        save_checkpoint(path, self.model.params, self.model.cfg)
+
+    @classmethod
+    def load(cls, path, device, extract_layer: int = 20, image_size: int = 448,
+             tokenizer=None) -> "Qwen2VLBackend":
+        """A backend from a directory written by ``save``, its weights on
+        ``device`` (pass a tokenizer for the text-level calls)."""
+        cfg, params = load_checkpoint(path, device, config_from_dict)
+        return cls(Qwen2VLModel(cfg, params), tokenizer=tokenizer,
+                   extract_layer=extract_layer, image_size=image_size)
+
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    def _preprocess(self, image: np.ndarray) -> np.ndarray:
+        """One host image -> CLIP-normalized (S, S, 3) float32 pixels on the
+        host at ``image_size``, as JAX's ``_preprocess`` (the engine
+        patchifies them)."""
+        return clip_pixels([image], self.image_size, self.device)[0].cpu().numpy()
 
     @property
     def num_patches_side(self) -> int:

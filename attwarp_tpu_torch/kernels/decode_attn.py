@@ -35,7 +35,9 @@ def decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer: int,
     """Plain PyTorch K3: scores ``(q . k_q) * k_s * sm_scale`` masked to
     ``mask``, softmax in f32, ``out = (p * v_s) . v_q``. The dots run in q's
     dtype, as ``models/llama.py::_attn_quantcache`` (and JAX's) do; GQA by
-    index (head h reads kv head ``h // (H // kvH)``)."""
+    index (head h reads kv head ``h // (H // kvH)``). A row with no valid
+    token returns zeros, as the kernel does (a decode step never makes one;
+    a serving slot that holds no request may)."""
     _, B, S, kvH, hd = k_q.shape
     H = q.shape[1]
     n_rep = H // kvH
@@ -45,7 +47,7 @@ def decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer: int,
     s = s * k_s[layer].permute(0, 2, 1)[:, :, None, :]
     s = s * sm_scale
     s = s.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=-1) * mask.any(dim=-1)[:, None, None, None]
     pv = p * v_s[layer].permute(0, 2, 1)[:, :, None, :]
     out = torch.einsum("bgrs,bsgd->bgrd", pv.to(dt), v_q[layer].to(dt))
     return out.reshape(B, H, hd)

@@ -13,8 +13,9 @@ the extract layer's row then comes from the O(T) ``_last_row_probs``, so no
 (T, T) matrix is built. Both are thin over ``decoder_prefill`` and
 ``decoder_decode_step``, which take the rotary cos/sin as given and so
 serve Qwen2-VL's M-RoPE decoder too. ``llama_decode_step`` runs one token against
-a dense or an int8 (``+kv8``) cache. With the int8 cache every layer except
-the extract layer reads the cache through kernel K3
+a dense or an int8 (``+kv8``) cache, at one position shared by the batch or
+at each row's own position (the serving slots). With the int8 cache every
+layer except the extract layer reads the cache through kernel K3
 (``kernels/decode_attn.py``); the extract layer keeps the plain
 ``_attn_quantcache`` form because it needs the probabilities row.
 
@@ -301,43 +302,65 @@ def llama_prefill(
                            max_seq, extract_layer, use_flash, kv_quant)
 
 
-def decoder_decode_step(params, cfg, token_embeds, kv, cur_len: int, cos, sin,
+def append_token(kv, layer: int, at, k1: torch.Tensor, v1: torch.Tensor) -> None:
+    """Write new keys and values ``(n, kvH, hd)`` into ``layer`` of the
+    cache IN PLACE at ``at`` = (batch rows, positions), an index pair such
+    as ``(:, 7)`` or ``(rows, cur_lens[rows])``; quantized per (token,
+    head) on an int8 cache."""
+    if isinstance(kv, QuantKVCache):
+        kv.k_q[(layer, *at)], kv.k_s[(layer, *at)] = quantize_kv(k1)
+        kv.v_q[(layer, *at)], kv.v_s[(layer, *at)] = quantize_kv(v1)
+    else:
+        kv.k[(layer, *at)] = k1
+        kv.v[(layer, *at)] = v1
+
+
+def attend_cache(kv, layer: int, q: torch.Tensor, kv_mask: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """One query per row (B, 1, H, hd) over cache plane ``layer`` where
+    ``kv_mask`` (B, S) allows: kernel K3 on an int8 cache, ``_attn`` on a
+    dense one. Returns (B, 1, hidden)."""
+    if isinstance(kv, QuantKVCache):
+        return decode_attn_int8(
+            q[:, 0], kv.k_q, kv.k_s, kv.v_q, kv.v_s, kv_mask, layer=layer,
+            sm_scale=1.0 / math.sqrt(cfg.head_dim),
+        ).reshape(q.shape[0], 1, cfg.hidden_size)
+    return _attn(q, kv.k[layer], kv.v[layer], kv_mask[:, None, :], cfg,
+                 want_probs=False)[0]
+
+
+def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
                         kv_mask, extract_layer: Optional[int] = None):
     """One token against the cache, given its rotary ``cos``/``sin``
     (B, 1, hd); the decode body of both families. Returns (logits (B, vocab)
     f32, the cache, the extract layer's probabilities row (B, H, max_seq) or
     None).
 
-    Each layer writes its new K/V at slot ``cur_len`` in place before it
-    attends. On an int8 cache, every layer but ``extract_layer`` attends
-    through kernel K3 over the whole cache with its layer index."""
+    ``cur_len`` is the cache position of the new token: one Python int for
+    the whole batch (the generate loop), or a (B,) long tensor with each
+    row's own position (the serving engines' slots). Each layer writes its
+    new K/V there in place before it attends. On an int8 cache, every layer
+    but ``extract_layer`` attends through kernel K3 over the whole cache
+    with its layer index."""
     _check_layer(extract_layer, cfg)
-    B = token_embeds.shape[0]
-    quant = isinstance(kv, QuantKVCache)
-    sm_scale = 1.0 / math.sqrt(cfg.head_dim)
+    # one advanced-index write per cache tensor for per-slot positions (the
+    # counterpart of JAX's serving/engine.py::_upd_slot)
+    at = ((slice(None), cur_len) if isinstance(cur_len, int) else
+          (torch.arange(token_embeds.shape[0], device=token_embeds.device), cur_len))
     x = token_embeds
     row = None
     for i, lp in enumerate(params["layers"]):
         q, k1, v1 = _qkv(lp, cfg, x, cos, sin)
-        if quant:
-            kv.k_q[i, :, cur_len], kv.k_s[i, :, cur_len] = quantize_kv(k1[:, 0])
-            kv.v_q[i, :, cur_len], kv.v_s[i, :, cur_len] = quantize_kv(v1[:, 0])
-            if i == extract_layer:
-                attn, row = _attn_quantcache(
-                    q, kv.k_q[i], kv.k_s[i], kv.v_q[i], kv.v_s[i],
-                    kv_mask[:, None, :], cfg, want_probs=True)
-            else:
-                attn = decode_attn_int8(
-                    q[:, 0], kv.k_q, kv.k_s, kv.v_q, kv.v_s, kv_mask,
-                    layer=i, sm_scale=sm_scale,
-                ).reshape(B, 1, cfg.hidden_size)
+        append_token(kv, i, at, k1[:, 0], v1[:, 0])
+        if i != extract_layer:
+            attn = attend_cache(kv, i, q, kv_mask, cfg)
+        elif isinstance(kv, QuantKVCache):
+            attn, row = _attn_quantcache(
+                q, kv.k_q[i], kv.k_s[i], kv.v_q[i], kv.v_s[i],
+                kv_mask[:, None, :], cfg, want_probs=True)
         else:
-            kv.k[i, :, cur_len] = k1[:, 0]
-            kv.v[i, :, cur_len] = v1[:, 0]
-            attn, r = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
-                            want_probs=(i == extract_layer))
-            if r is not None:
-                row = r
+            attn, row = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
+                              want_probs=True)
         x = x + apply_linear(attn, lp["o_proj"])
         x = x + _mlp(lp, cfg, x)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
@@ -349,7 +372,7 @@ def llama_decode_step(
     cfg: LlamaConfig,
     token_embeds: torch.Tensor,     # (B, 1, D)
     kv,                             # LlamaKVCache | QuantKVCache, updated in place
-    cur_len: int,                   # cache slot of the new token
+    cur_len,                        # cache slot of the new token: int or (B,)
     positions: torch.Tensor,        # (B,) rope position of the new token
     kv_mask: torch.Tensor,          # (B, max_seq) bool incl. the new slot
     extract_layer: Optional[int] = None,

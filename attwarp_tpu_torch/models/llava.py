@@ -149,6 +149,13 @@ class LlavaModel:
         return torch.stack(toks, dim=1), maps
 
 
+def config_from_dict(d: Dict[str, Any]) -> LlavaConfig:
+    """``dataclasses.asdict`` of a LLaVA config (the port's or JAX's, they
+    are field for field the same) -> ``LlavaConfig``."""
+    return LlavaConfig(vision=ClipVisionConfig(**d["vision"]), text=LlamaConfig(**d["text"]),
+                       **{k: v for k, v in d.items() if k not in ("vision", "text")})
+
+
 def params_from_jax(tree, device=None, dtype=None):
     """A JAX LLaVA parameter tree (dicts and lists of arrays, e.g. after
     ``jax.device_get``) -> the same tree of tensors on ``device``, cast to

@@ -93,6 +93,16 @@ class Qwen2VLConfig:
     eos_token_id: int = 151645
 
 
+def config_from_dict(d: Dict[str, Any]) -> Qwen2VLConfig:
+    """``dataclasses.asdict`` of a Qwen2-VL config (the port's or JAX's)
+    -> ``Qwen2VLConfig`` (``mrope_section`` back to a tuple, as JSON gives
+    a list)."""
+    text = dict(d["text"], mrope_section=tuple(d["text"]["mrope_section"]))
+    return Qwen2VLConfig(vision=Qwen2VLVisionConfig(**d["vision"]),
+                         text=Qwen2VLTextConfig(**text),
+                         **{k: v for k, v in d.items() if k not in ("vision", "text")})
+
+
 # ── image patchification (HF Qwen2VLImageProcessor layout) ──────────────
 
 
@@ -291,11 +301,12 @@ def qwen2vl_prefill(
 
 
 def qwen2vl_decode_step(
-    params, cfg: Qwen2VLTextConfig, token_embeds, kv, cur_len: int, cos, sin,
+    params, cfg: Qwen2VLTextConfig, token_embeds, kv, cur_len, cos, sin,
     kv_mask, extract_layer: Optional[int] = None,
 ):
     """One token against a dense or int8 cache (``decoder_decode_step``):
-    written in place at ``cur_len``; on the int8 cache every layer but the
+    written in place at ``cur_len`` (an int, or a (B,) tensor of per-slot
+    positions); on the int8 cache every layer but the
     extract layer reads it through kernel K3 by layer index."""
     return decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
                                kv_mask, extract_layer)

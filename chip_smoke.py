@@ -17,18 +17,37 @@ NVIDIA GPU.
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
    launch counts must show K1 and K3 on the path; its masks and warps are
-   checked against the port's CPU path. The LLaVA weights are then freed.
+   checked against the port's CPU path.
 7. The same pipeline at Qwen2-VL-7B width (random bf16 weights, 672 px,
    24x24 maps) with the int8 cache and the flash prefill: first the flash
    prefill against the dense one on the slice's first batch (held on an
    f32 copy of the text weights, where the dense path is exact, and on the
    bf16 weights against the dense path's own distance from f32), then one
    warm-up and one timed run whose launch counts must show K1, K2 and K3.
+8. Serving at full width, through ``attwarp_tpu_torch.cli.serve.serve`` on
+   the weights of steps 6 and 7, every request submitted at once:
+   Qwen2-VL-7B ``+kv8+flash`` at 672 px (8 slots, 16 requests),
+   LLaVA-1.5-7B ``+kv8+flash`` (16 slots, 32 requests in the 640 and 704
+   buckets, 8-32 new tokens) and the chunked engine on LLaVA-1.5-7B
+   ``+kv8`` (P=128, 16 slots, 16 requests). Each prints tokens/s, TTFT
+   p50/p95, admission waves, peak memory, wall and its host-clock split,
+   and its launch counts must be K3 = layers x decode steps and K2 =
+   layers x admission prefills (0 for the chunked engine). Last, one
+   ``+kv8+flash`` tick at 16 slots is timed and profiled.
+   Order: 7, its serve run, 6, its serve runs and the profile; each
+   model's weights are freed after its serve runs.
+9. Serving parity at LLaVA-1.5-7B width with 2 vision and 2 decoder layers
+   and f32 weights: ``ServeEngine`` (4 slots, ``+flash``) on a dense and on
+   an int8 cache gives every request (6 prompts of 600-700 tokens, 8 new
+   tokens) the greedy tokens of its own ``generate_with_attention`` on the
+   same cache type, left-padded to the same bucket; the chunked engine
+   (P=128) gives those of ``ServeEngine`` without ``+flash``.
 
 Run from the repo root:  python3 chip_smoke.py
 Exits non-zero on any failure and when no CUDA device is present. The last
 line of stdout is {"ok": true, "device": {...}}; the line before it lists
-each kernel with its launches, error and times.
+each kernel with its launches (per path), error and times. Each phase
+prints its wall.
 """
 
 from __future__ import annotations
@@ -97,6 +116,14 @@ class TimedBackend:
 
     def answer_batch(self, *args, **kwargs):
         return self._timed("pass2", self.backend.answer_batch, *args, **kwargs)
+
+
+def _phase(tag, fn, *args):
+    """Run one phase and print its wall (host clock)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{tag}] phase wall {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -392,7 +419,7 @@ def phase_slice(dev):
             "flash_prefill": 0,                          # dense prefill here
             # pass 1 reads the extract layer without K3
             "decode_attn_int8": steps * (L - 1) + steps * L}
-    return _drive("6 llava", backend, 24, _counters(), want)
+    return _drive("6 llava", backend, 24, _counters(), want), backend.backend
 
 
 def _to_f32(tree):
@@ -501,7 +528,240 @@ def phase_qwen(dev):
             # pass 1 reads the extract layer without K3
             "decode_attn_int8": steps * (L - 1) + steps * L}
     return _drive("7 qwen", TimedBackend(inner), inner.num_patches_side,
-                  _counters(), want)
+                  _counters(), want), inner
+
+
+FILLER = " describe every word on the sign in order."
+
+
+def _serve_requests(backend, n, seed, long_every=2, max_new=(8, 32)):
+    """``n`` requests over the 4 smoke images (pixels by the backend's own
+    ``_preprocess``): every ``long_every``-th question is padded with filler
+    into the next 64-token bucket; ``max_new_tokens`` drawn from
+    ``max_new`` (inclusive) by a seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pixels = [backend._preprocess(im) for im in _images()]
+    reqs = []
+    for i in range(n):
+        q = QUESTIONS[i % 4] + (FILLER * 9 if i % long_every == long_every - 1 else "")
+        reqs.append({"input_ids": np.asarray(backend.build_ids(q), np.int64),
+                     "pixel_values": pixels[i % 4],
+                     "max_new_tokens": int(rng.integers(max_new[0], max_new[1] + 1)),
+                     "temperature": 0.0})
+    return reqs
+
+
+def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=0):
+    """One serve run of ``requests`` (all submitted at once) with every
+    kernel's launch count set to 0 just before it and read just after.
+    Prints tokens/s, TTFT p50/p95, admission waves, peak memory and wall;
+    checks the outputs and that K3 = layers x decode steps and K2 = layers x
+    admission prefills (0 without ``+flash`` or in the chunked engine).
+    Returns (launch counts, the outputs)."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.cli.serve import serve
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, outs = serve(backend, requests, slots=slots, max_seq=768,
+                      steps_per_tick=steps_per_tick, chunked_prefill=chunked_prefill)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(o) for o in outs)
+    ttft = [st["first_token"] - st["submit"] for st in eng.request_stats.values()]
+    p50, p95 = np.percentile(ttft, [50, 95])
+    L = eng.tcfg.num_hidden_layers
+    flash = bool(backend.use_flash) and not chunked_prefill
+    want = {"warp_resample": 0, "decode_attn_int8": L * eng.decode_steps,
+            "flash_prefill": L * eng.prefill_groups if flash else 0}
+    buckets = sorted({-(-len(r["input_ids"]) // 64) * 64 for r in requests})
+    admit_s = sum(end - start for start, end, _ in eng.admit_log)
+    used = sum(sum(took.values()) for _, took in eng.tick_log)
+    print(f"[{tag}] {len(requests)} requests (buckets {buckets}), {n_tok} tokens: "
+          f"{n_tok / wall:.1f} tok/s | TTFT p50 {p50 * 1e3:.1f} ms, p95 "
+          f"{p95 * 1e3:.1f} ms | {len(eng.admit_log)} admission waves "
+          f"({eng.prefill_groups} prefill groups, {eng.decode_steps} decode steps) | "
+          f"peak memory {peak / 2**30:.2f} GiB | wall {wall:.3f} s | launches: " + ", ".join(
+              f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+    print(f"[{tag}] host clock: admission {admit_s:.3f} s, ticks {wall - admit_s:.3f} s "
+          f"({(wall - admit_s) / max(eng.decode_steps, 1) * 1e3:.1f} ms per decode step); "
+          f"slot occupancy {used / max(eng.decode_steps * eng.slots, 1):.3f} "
+          f"(tokens kept / slot-steps run)")
+    vocab = eng.tcfg.vocab_size
+    check(all(1 <= len(o) <= r["max_new_tokens"] and all(0 <= t < vocab for t in o)
+              for o, r in zip(outs, requests)), f"{tag}: outputs")
+    check(eng.decode_steps > 0 and want["decode_attn_int8"] > 0, f"{tag}: no decode step")
+    for name in counters:
+        check(launches[name] == want[name], f"{tag}: {name} launch count")
+    return launches, outs
+
+
+def _profile_tick(tag, backend, requests, slots, steps_per_tick=8):
+    """Where a steady serve tick's time goes: fill every slot, run one
+    tick, time the next on the host clock (ends in a synchronize), and
+    profile the one after (torch.profiler, CUDA activity only, so each
+    kernel counts once): the device's summed kernel time against the
+    unprofiled tick, and the largest kernels. Run last: the profiler slows
+    the runs that follow it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from attwarp_tpu_torch.serving import ServeEngine
+
+    eng = ServeEngine(backend.model, slots=slots, max_seq=768, kv_quant=backend.kv_quant,
+                      steps_per_tick=steps_per_tick, use_flash=backend.use_flash)
+    for r in requests[:slots]:
+        eng.submit(r["input_ids"], r["pixel_values"], max_new_tokens=4 * steps_per_tick)
+    eng._admit()
+    eng._tick()                                   # activates the slots
+    eng._tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._tick()
+    torch.cuda.synchronize()
+    tick = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._tick()
+        torch.cuda.synchronize()
+        prof_tick = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    print(f"[{tag}] one tick ({steps_per_tick} steps, {slots} slots decoding): host clock "
+          f"{tick * 1e3:.1f} ms ({tick / steps_per_tick * 1e3:.1f} ms per step); profiled "
+          f"tick {prof_tick * 1e3:.1f} ms with {dev_ms:.1f} ms of device kernels "
+          f"({dev_ms / (tick * 1e3):.2f} of the unprofiled tick)")
+    print(f"[{tag}] largest kernels: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+
+
+def _agreement(tag, model, requests, outs, k):
+    """Greedy tokens of the first ``k`` served requests against per-request
+    ``generate_with_attention`` (same cache and prefill, left-padded to the
+    same bucket). Reported, not gated: on bf16 weights a near-tie can tip
+    with the batch's GEMM shapes."""
+    same = sum(o == _generate_one(model, r, True, True)
+               for o, r in zip(outs[:k], requests[:k]))
+    print(f"[{tag}] agreement with per-request generate (bf16 weights, reported "
+          f"only): {same}/{k} requests token-identical")
+
+
+def _generate_one(model, req, kv_quant, use_flash):
+    """Per-request greedy generate of one serve request (answer-only,
+    left-padded to its 64-token bucket), cut after EOS as the engine stops."""
+    import numpy as np
+    import torch
+
+    ids = req["input_ids"]
+    Tb = -(-len(ids) // 64) * 64
+    pad = Tb - len(ids)
+    dev = model.device
+    ids_p = torch.zeros((1, Tb), dtype=torch.int64, device=dev)
+    ids_p[0, pad:] = torch.as_tensor(ids, device=dev)
+    mask = torch.arange(Tb, device=dev)[None] >= pad
+    pix = torch.as_tensor(req["pixel_values"][None], device=dev)
+    if hasattr(model.cfg, "vision_start_token_id"):
+        from attwarp_tpu_torch.models.qwen2vl import patchify_batch
+
+        patches, grid = patchify_batch(pix, model.cfg.vision)
+        gen, _ = model.generate_with_attention(
+            ids_p, patches, grid, mask, extract_layer=None,
+            max_new_tokens=req["max_new_tokens"], kv_quant=kv_quant, use_flash=use_flash)
+    else:
+        img_start = torch.as_tensor([pad + int(np.argmax(ids == model.cfg.image_token_index))],
+                                    device=dev)
+        gen, _ = model.generate_with_attention(
+            ids_p, pix, mask, img_start, extract_layer=None,
+            max_new_tokens=req["max_new_tokens"], kv_quant=kv_quant, use_flash=use_flash)
+    row = gen[0].tolist()
+    eos = model.cfg.eos_token_id
+    return row[: row.index(eos) + 1] if eos in row else row
+
+
+def phase_llava_serve(backend):
+    """LLaVA-1.5-7B serving on the slice's bf16 weights: ``+kv8+flash``
+    ServeEngine, then the chunked engine ``+kv8``, then the profile of one
+    ``+kv8+flash`` tick."""
+    backend.kv_quant, backend.use_flash = True, True
+    reqs = _serve_requests(backend, 32, seed=1)
+    serve, outs = _serve_run("8 llava serve", backend, reqs, slots=16)
+    _agreement("8 llava serve", backend.model, reqs, outs, 4)
+    backend.use_flash = False
+    chunked, _ = _serve_run("8 llava chunked", backend,
+                            _serve_requests(backend, 16, seed=2), slots=16,
+                            chunked_prefill=128)
+    backend.use_flash = True
+    t0 = time.perf_counter()
+    _profile_tick("8 llava serve", backend, reqs, slots=16)
+    print(f"[8 llava serve] tick profile wall {time.perf_counter() - t0:.2f} s")
+    return serve, chunked
+
+
+def phase_qwen_serve(backend):
+    """Qwen2-VL-7B ``+kv8+flash`` serving at 672 px on the slice's weights."""
+    reqs = _serve_requests(backend, 16, seed=3)
+    launches, outs = _serve_run("8 qwen serve", backend, reqs, slots=8)
+    _agreement("8 qwen serve", backend.model, reqs, outs, 2)
+    return launches
+
+
+def phase_serve_parity(dev):
+    """f32 serving parity at LLaVA-1.5-7B width, 2 vision and 2 decoder
+    layers (see the module docstring, step 9)."""
+    import torch
+
+    from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig
+    from attwarp_tpu_torch.models.llama import LlamaConfig
+    from attwarp_tpu_torch.models.llava import LlavaConfig, LlavaModel, random_params
+
+    cfg = LlavaConfig(vision=ClipVisionConfig(num_hidden_layers=2),
+                      text=LlamaConfig(vocab_size=32064, num_hidden_layers=2),
+                      image_token_index=32000)
+    params = random_params(cfg, torch.Generator(device=dev).manual_seed(5), dev,
+                           torch.float32)
+    backend = LlavaBackend(LlavaModel(cfg, params), tokenizer=DryRunTokenizer(),
+                           extract_layer=0)
+    _serve_parity(backend)
+    del params, backend
+    torch.cuda.empty_cache()
+
+
+def _serve_parity(backend):
+    """The token bars of step 9 on ``backend``'s (f32) weights."""
+    from attwarp_tpu_torch.cli.serve import serve
+
+    model = backend.model
+    reqs = _serve_requests(backend, 6, seed=4, max_new=(8, 8))
+    kw = dict(slots=4, max_seq=768, steps_per_tick=4)
+    for kv in (False, True):
+        backend.kv_quant, backend.use_flash = kv, True
+        eng, outs = serve(backend, reqs, **kw)
+        refs = [_generate_one(model, r, kv, True) for r in reqs]
+        same = sum(o == r for o, r in zip(outs, refs))
+        print(f"[9 serve parity] f32, {'kv8' if kv else 'dense'}+flash: {same}/{len(reqs)} "
+              f"requests token-identical to per-request generate "
+              f"({eng.prefill_groups} prefill groups, {eng.decode_steps} decode steps)")
+        check(same == len(reqs), "serving tokens differ from per-request generate")
+    backend.kv_quant = backend.use_flash = False
+    _, base = serve(backend, reqs, **kw)
+    _, chunked = serve(backend, reqs, chunked_prefill=128, **kw)
+    same = sum(a == b for a, b in zip(base, chunked))
+    print(f"[9 serve parity] f32 dense, no flash: chunked engine (P=128) "
+          f"{same}/{len(reqs)} requests token-identical to ServeEngine")
+    check(same == len(reqs), "chunked engine tokens differ from ServeEngine")
 
 
 def _leaves(tree):
@@ -524,15 +784,28 @@ def main() -> int:
         return 2
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    name = phase_device()
-    phase_build()
-    k1 = phase_k1(dev)
-    k3 = phase_k3(dev)
-    k2 = phase_k2(dev)
-    paths = {"llava": phase_slice(dev)}
-    gc.collect()                 # free the LLaVA weights before Qwen's
+    t_all = time.perf_counter()
+    name = _phase("1 device", phase_device)
+    _phase("2 build", phase_build)
+    k1 = _phase("3 K1", phase_k1, dev)
+    k3 = _phase("4 K3", phase_k3, dev)
+    k2 = _phase("5 K2", phase_k2, dev)
+    # Qwen first: the LLaVA serve phase ends with a profiled tick, and the
+    # profiler slows what runs after it
+    paths = {}
+    paths["qwen"], backend = _phase("7 qwen", phase_qwen, dev)
+    paths["qwen_serve"] = _phase("8 qwen serve", phase_qwen_serve, backend)
+    del backend
+    gc.collect()                 # free the Qwen weights before LLaVA's
     torch.cuda.empty_cache()
-    paths["qwen"] = phase_qwen(dev)
+    paths["llava"], backend = _phase("6 llava", phase_slice, dev)
+    paths["llava_serve"], paths["llava_chunked"] = _phase(
+        "8 llava serve", phase_llava_serve, backend)
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("9 serve parity", phase_serve_parity, dev)
+    print(f"[all] wall {time.perf_counter() - t_all:.2f} s")
 
     def launches(name):
         return {"launches": sum(p[name] for p in paths.values()),

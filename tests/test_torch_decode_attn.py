@@ -152,3 +152,25 @@ def test_wrapper_on_cpu_runs_plain():
     torch.testing.assert_close(
         got, decode_attn_plain(q, T["k_q"], T["k_s"], T["v_q"], T["v_s"], mask, 0, 0.1),
         rtol=0, atol=0)
+
+
+def test_plain_serving_masks():
+    """Serving-slot masks: a row's own [start, cur] window equals that row
+    alone (its neighbours' windows do not leak in), and a row with no valid
+    position returns zeros, as the CUDA kernel does."""
+    c = _case(2, 3, 48, 4, 2, 16, seed=4)
+    T = {k: torch.as_tensor(v) for k, v in _updated(c).items()}
+    q = torch.as_tensor(c["q"])[:, 0]
+    mask = torch.zeros((3, 48), dtype=torch.bool)
+    mask[0, 7:30] = True
+    mask[1, 0] = True                      # a retired slot: position 0 only
+    got = decode_attn_plain(q, T["k_q"], T["k_s"], T["v_q"], T["v_s"], mask, 1, 0.25)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    for b in (0, 1):
+        one = decode_attn_plain(q[b:b + 1], *(T[k][:, b:b + 1] for k in ("k_q", "k_s", "v_q", "v_s")),
+                                mask[b:b + 1], 1, 0.25)
+        torch.testing.assert_close(got[b:b + 1], one, rtol=1e-6, atol=1e-6)
+    # position 0 alone: the output is that token's dequantized value
+    v0 = T["v_q"][1, 1, 0].float() * T["v_s"][1, 1, 0][:, None]
+    torch.testing.assert_close(got[1].reshape(2, 2, 16), v0[:, None].expand(2, 2, 16),
+                               rtol=1e-6, atol=1e-6)

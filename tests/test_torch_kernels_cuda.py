@@ -90,6 +90,31 @@ def test_k3_cuda_matches_plain(cuda, L, B, S, H, kvH):
         assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,H,kvH", [(32, 32, 32), (28, 28, 4)], ids=["llava7b", "qwen7b"])
+def test_k3_cuda_serving_masks(cuda, L, H, kvH):
+    """The masks of a serving slot pool (B=6, S=768): each row its own
+    [start, cur_len] window, a retired slot's window [0, 0], and a row with
+    no valid position at all, which both versions return as zeros. Finite,
+    and within the bars of ``test_k3_cuda_matches_plain``."""
+    B, S = 6, 768
+    q, k_q, k_s, v_q, v_s, _ = _k3_case(cuda, L, B, S, H, kvH, seed=11)
+    mask = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    for b, (start, cur) in enumerate(((37, 640), (0, 703), (60, 120), (0, 0), (5, 767))):
+        mask[b, start:cur + 1] = True                 # row 5 stays all False
+    args = (k_q, k_s, v_q, v_s, mask, L - 1, 1.0 / np.sqrt(128))
+    got = decode_attn_int8(q, *args).float()
+    ref = decode_attn_plain(q, *args).float()
+    ref32 = decode_attn_plain(q.float(), *args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got[5].any() and not ref32[5].any()
+    for r in (ref, ref32):
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), r.flatten(), dim=0)
+        assert cos.item() > 0.999
+        assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+
+
 def _k2_case(dev, B, T, H, kvH, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((B, T, n, 128), generator=g, device=dev).to(torch.bfloat16)
