@@ -36,8 +36,8 @@ def decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer: int,
     ``mask``, softmax in f32, ``out = (p * v_s) . v_q``. The dots run in q's
     dtype, as ``models/llama.py::_attn_quantcache`` (and JAX's) do; GQA by
     index (head h reads kv head ``h // (H // kvH)``). A row with no valid
-    token returns zeros, as the kernel does (a decode step never makes one;
-    a serving slot that holds no request may)."""
+    token returns zeros, as the kernel does (neither the decode loop nor
+    the serving engines make one)."""
     _, B, S, kvH, hd = k_q.shape
     H = q.shape[1]
     n_rep = H // kvH

@@ -217,12 +217,30 @@ def _mlp(lp: Dict[str, Any], cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def layer_project(lp: Dict[str, Any], cfg: LlamaConfig, x):
+    """A decoder layer's input norm and q/k/v projections of rows x
+    (..., D), before rotary: (..., H*hd), (..., kvH*hd), (..., kvH*hd)."""
+    h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
+    return tuple(apply_linear(h, lp[w]) for w in ("q_proj", "k_proj", "v_proj"))
+
+
+def layer_residuals(lp: Dict[str, Any], cfg: LlamaConfig, x, attn):
+    """A decoder layer after its attention: the o_proj and MLP residuals."""
+    x = x + apply_linear(attn, lp["o_proj"])
+    return x + _mlp(lp, cfg, x)
+
+
+def final_logits(params: Dict[str, Any], cfg: LlamaConfig, x) -> torch.Tensor:
+    """The final norm and the LM head of rows x (..., D): f32 logits."""
+    return lm_logits(rms_norm(x, params["norm"], cfg.rms_norm_eps), params)
+
+
 def _qkv(lp: Dict[str, Any], cfg: LlamaConfig, x, cos, sin):
     B, T, _ = x.shape
-    h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
-    q = apply_linear(h, lp["q_proj"]).reshape(B, T, cfg.num_attention_heads, cfg.head_dim)
-    k = apply_linear(h, lp["k_proj"]).reshape(B, T, cfg.kv_heads, cfg.head_dim)
-    v = apply_linear(h, lp["v_proj"]).reshape(B, T, cfg.kv_heads, cfg.head_dim)
+    q, k, v = layer_project(lp, cfg, x)
+    q = q.reshape(B, T, cfg.num_attention_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
@@ -275,10 +293,8 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
         else:
             cache.k[i, :, :T] = k
             cache.v[i, :, :T] = v
-        x = x + apply_linear(attn, lp["o_proj"])
-        x = x + _mlp(lp, cfg, x)
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return lm_logits(x[:, -1], params), cache, row
+        x = layer_residuals(lp, cfg, x, attn)
+    return final_logits(params, cfg, x[:, -1]), cache, row
 
 
 def llama_prefill(
@@ -361,10 +377,8 @@ def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
         else:
             attn, row = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
                               want_probs=True)
-        x = x + apply_linear(attn, lp["o_proj"])
-        x = x + _mlp(lp, cfg, x)
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return lm_logits(x[:, 0], params), kv, row
+        x = layer_residuals(lp, cfg, x, attn)
+    return final_logits(params, cfg, x[:, 0]), kv, row
 
 
 def llama_decode_step(

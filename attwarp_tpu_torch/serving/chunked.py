@@ -46,13 +46,14 @@ import torch
 from attwarp_tpu_torch.models.llama import (
     QuantKVCache,
     _attn,
-    _mlp,
     append_token,
     apply_rope,
     attend_cache,
-    rms_norm,
+    final_logits,
+    layer_project,
+    layer_residuals,
 )
-from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv
+from attwarp_tpu_torch.numerics.quant import quantize_kv
 from attwarp_tpu_torch.serving.engine import Request, ServeEngine, sample_tokens
 
 
@@ -165,8 +166,7 @@ class ChunkedPrefillEngine(ServeEngine):
             kcs, vcs = [], []
         x = torch.cat(parts)                                   # (B + n, D)
         for i, lp in enumerate(p["layers"]):
-            h = rms_norm(x, lp["input_layernorm"], t.rms_norm_eps)
-            q, k, v = (apply_linear(h, lp[w]) for w in ("q_proj", "k_proj", "v_proj"))
+            q, k, v = layer_project(lp, t, x)
             outs = []
             if B:
                 qd, kd = apply_rope(q[:B].reshape(B, 1, H, hd),
@@ -182,8 +182,7 @@ class ChunkedPrefillEngine(ServeEngine):
                 outs.append(_attn(qc, k_all, v_all, cmask, t, want_probs=False)[0][0])
                 kcs.append(kc[0])
                 vcs.append(vc[0])
-            x = x + apply_linear(torch.cat(outs), lp["o_proj"])
-            x = x + _mlp(lp, t, x)
+            x = layer_residuals(lp, t, x, torch.cat(outs))
         first = None
         if chunk is not None:
             self._write_chunk(a.slot, dst, torch.stack(kcs), torch.stack(vcs))
@@ -192,7 +191,7 @@ class ChunkedPrefillEngine(ServeEngine):
         keep = list(range(B)) + ([] if first is None else [first])
         if not keep:
             return None, None
-        logits = lm_logits(rms_norm(x[keep], p["norm"], t.rms_norm_eps), p)
+        logits = final_logits(p, t, x[keep])
         return (logits[:B] if B else None), (logits[B] if first is not None else None)
 
     def _write_chunk(self, slot: int, dst: int, ks, vs) -> None:

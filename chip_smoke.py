@@ -9,10 +9,13 @@ NVIDIA GPU.
    pipeline's shape: (4, 512, 640, 3) -> 500x500.
 4. Kernel K3 (int8-cache decode attention) against its plain version at
    LLaVA-1.5-7B and Qwen2-VL-7B decode geometry (B=4, S=704; 32/32 and
-   28/4 heads), plus a small GQA case.
+   28/4 heads), at their serving geometry (B=16 and B=8 slots, S=768)
+   with per-slot [start, cur] windows, a retired slot's [0, 0] and a free
+   slot's [0, j], plus a small GQA case.
 5. Kernel K2 (flash prefill) against its plain version at LLaVA-1.5-7B and
-   Qwen2-VL-7B prefill geometry (B=4, T=640; 32/32 and 28/4 heads) with
-   per-row left padding, plus a ragged T=200.
+   Qwen2-VL-7B prefill geometry (B=4, T=640; 32/32 and 28/4 heads), at
+   their admission geometry (groups of 8 at T=704), all with per-row left
+   padding, plus a ragged T=200.
 6. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
@@ -26,16 +29,15 @@ NVIDIA GPU.
    warm-up and one timed run whose launch counts must show K1, K2 and K3.
 8. Serving at full width, through ``attwarp_tpu_torch.cli.serve.serve`` on
    the weights of steps 6 and 7, every request submitted at once:
-   Qwen2-VL-7B ``+kv8+flash`` at 672 px (8 slots, 16 requests),
    LLaVA-1.5-7B ``+kv8+flash`` (16 slots, 32 requests in the 640 and 704
-   buckets, 8-32 new tokens) and the chunked engine on LLaVA-1.5-7B
-   ``+kv8`` (P=128, 16 slots, 16 requests). Each prints tokens/s, TTFT
-   p50/p95, admission waves, peak memory, wall and its host-clock split,
-   and its launch counts must be K3 = layers x decode steps and K2 =
-   layers x admission prefills (0 for the chunked engine). Last, one
-   ``+kv8+flash`` tick at 16 slots is timed and profiled.
-   Order: 7, its serve run, 6, its serve runs and the profile; each
-   model's weights are freed after its serve runs.
+   buckets, 8-32 new tokens), the chunked engine on LLaVA-1.5-7B ``+kv8``
+   (P=128, 16 slots, 16 requests), one steady ``+kv8+flash`` tick at 16
+   slots on the host clock, and Qwen2-VL-7B ``+kv8+flash`` at 672 px (8
+   slots, 16 requests). Each run prints tokens/s, TTFT p50/p95, admission
+   waves, peak memory, wall and its host-clock split, and its launch
+   counts must be K3 = layers x decode steps and K2 = layers x admission
+   prefills (0 for the chunked engine). Each model's weights are freed
+   after its serve runs.
 9. Serving parity at LLaVA-1.5-7B width with 2 vision and 2 decoder layers
    and f32 weights: ``ServeEngine`` (4 slots, ``+flash``) on a dense and on
    an int8 cache gives every request (6 prompts of 600-700 tokens, 8 new
@@ -184,7 +186,15 @@ def phase_k1(dev):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def _k3_case(dev, L, B, S, H, kvH, seed):
+def _serve_windows(B):
+    """Per-slot [start, cur] windows of a serving pool at S=768: prompts
+    left-padded in the 640 and 704 buckets at different decode depths,
+    then a retired slot's [0, 0] and a free slot's [0, j]."""
+    rows = [((37 * b) % 64, (640, 704)[b % 2] + (11 * b) % 60) for b in range(B - 2)]
+    return rows + [(0, 0), (0, 17)]
+
+
+def _k3_case(dev, L, B, S, H, kvH, seed, windows=None):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -196,11 +206,13 @@ def _k3_case(dev, L, B, S, H, kvH, seed):
     k_s = (torch.rand((L, B, S, kvH), generator=g, device=dev) + 0.5) / 127
     v_s = (torch.rand((L, B, S, kvH), generator=g, device=dev) + 0.5) / 127
     q = torch.randn((B, H, hd), generator=g, device=dev).to(torch.bfloat16)
-    # left padding and a current length per row, as the decode loop has them
+    # left padding and a current length per row, as the decode loop has
+    # them, or each slot's own window
+    if windows is None:
+        windows = [((37 * b) % 64, S - 44 + 3 * b) for b in range(B)]
     ar = torch.arange(S, device=dev)[None, :]
-    pad = torch.tensor([(37 * b) % 64 for b in range(B)], device=dev)[:, None]
-    cur = torch.tensor([S - 44 + 3 * b for b in range(B)], device=dev)[:, None]
-    mask = (ar >= pad) & (ar <= cur)
+    start, cur = (torch.tensor(c, device=dev)[:, None] for c in zip(*windows))
+    mask = (ar >= start) & (ar <= cur)
     return q, k_q, k_s, v_q, v_s, mask
 
 
@@ -221,12 +233,15 @@ def phase_k3(dev):
     out = {}
     # decode caches of S=704 (640-token prompt + 20, to 64s): LLaVA-1.5-7B
     # (32 layers, 32/32 heads) and Qwen2-VL-7B (28 layers, 28 over 4 kv
-    # heads, n_rep 7); plus a small GQA case with n_rep 8
-    for name, (L, B, S, H, kvH), seed, timed in (
-            ("llava7b", (32, 4, 704, 32, 32), 2, True),
-            ("qwen7b", (28, 4, 704, 28, 4), 9, True),
-            ("gqa", (2, 2, 192, 32, 4), 3, False)):
-        q, k_q, k_s, v_q, v_s, mask = _k3_case(dev, L, B, S, H, kvH, seed=seed)
+    # heads, n_rep 7); their serving slot pools (16 and 8 slots of
+    # max_seq 768, per-slot windows); plus a small GQA case with n_rep 8
+    for name, (L, B, S, H, kvH), seed, timed, windows in (
+            ("llava7b", (32, 4, 704, 32, 32), 2, True, None),
+            ("qwen7b", (28, 4, 704, 28, 4), 9, True, None),
+            ("llava7b_serve", (32, 16, 768, 32, 32), 12, True, _serve_windows(16)),
+            ("qwen7b_serve", (28, 8, 768, 28, 4), 13, True, _serve_windows(8)),
+            ("gqa", (2, 2, 192, 32, 4), 3, False, None)):
+        q, k_q, k_s, v_q, v_s, mask = _k3_case(dev, L, B, S, H, kvH, seed, windows)
         layer = min(7, L - 1)
         got = decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm)
         ref = decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm)
@@ -248,7 +263,8 @@ def phase_k3(dev):
             line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         print(line)
-        check(cos > 0.999 and cos32 > 0.999 and err <= tol and err32 <= 2e-2 * mag32,
+        check(bool(torch.isfinite(got).all()) and cos > 0.999 and cos32 > 0.999
+              and err <= tol and err32 <= 2e-2 * mag32,
               f"K3 disagrees with its plain version ({name})")
         del q, k_q, k_s, v_q, v_s, mask, got, ref, ref32
     torch.cuda.empty_cache()
@@ -273,8 +289,12 @@ def phase_k2(dev):
 
     sm = 1.0 / 128 ** 0.5
     out = {}
+    # the pipeline's B=4 prefill at T=640, the serving engines' admission
+    # groups (at most 8) at T=704, and a ragged T
     for name, (B, T, H, kvH), timed in (("llava7b", (4, 640, 32, 32), True),
                                         ("qwen7b", (4, 640, 28, 4), True),
+                                        ("llava7b_serve", (8, 704, 32, 32), True),
+                                        ("qwen7b_serve", (8, 704, 28, 4), True),
                                         ("ragged", (3, 200, 28, 4), False)):
         q, k, v, mask = _k2_case(dev, B, T, H, kvH, seed=8)
         got = flash_prefill(q, k, v, mask, sm)
@@ -606,15 +626,11 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     return launches, outs
 
 
-def _profile_tick(tag, backend, requests, slots, steps_per_tick=8):
-    """Where a steady serve tick's time goes: fill every slot, run one
-    tick, time the next on the host clock (ends in a synchronize), and
-    profile the one after (torch.profiler, CUDA activity only, so each
-    kernel counts once): the device's summed kernel time against the
-    unprofiled tick, and the largest kernels. Run last: the profiler slows
-    the runs that follow it."""
+def _time_tick(tag, backend, requests, slots, steps_per_tick=8):
+    """A steady serve tick: fill every slot, run two ticks (the first
+    activates the slots), and time the next on the host clock (it ends in
+    a synchronize)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from attwarp_tpu_torch.serving import ServeEngine
 
@@ -630,20 +646,8 @@ def _profile_tick(tag, backend, requests, slots, steps_per_tick=8):
     eng._tick()
     torch.cuda.synchronize()
     tick = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng._tick()
-        torch.cuda.synchronize()
-        prof_tick = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     print(f"[{tag}] one tick ({steps_per_tick} steps, {slots} slots decoding): host clock "
-          f"{tick * 1e3:.1f} ms ({tick / steps_per_tick * 1e3:.1f} ms per step); profiled "
-          f"tick {prof_tick * 1e3:.1f} ms with {dev_ms:.1f} ms of device kernels "
-          f"({dev_ms / (tick * 1e3):.2f} of the unprofiled tick)")
-    print(f"[{tag}] largest kernels: " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+          f"{tick * 1e3:.1f} ms ({tick / steps_per_tick * 1e3:.1f} ms per step)")
 
 
 def _agreement(tag, model, requests, outs, k):
@@ -691,7 +695,7 @@ def _generate_one(model, req, kv_quant, use_flash):
 
 def phase_llava_serve(backend):
     """LLaVA-1.5-7B serving on the slice's bf16 weights: ``+kv8+flash``
-    ServeEngine, then the chunked engine ``+kv8``, then the profile of one
+    ServeEngine, the chunked engine ``+kv8``, then one steady
     ``+kv8+flash`` tick."""
     backend.kv_quant, backend.use_flash = True, True
     reqs = _serve_requests(backend, 32, seed=1)
@@ -702,9 +706,7 @@ def phase_llava_serve(backend):
                             _serve_requests(backend, 16, seed=2), slots=16,
                             chunked_prefill=128)
     backend.use_flash = True
-    t0 = time.perf_counter()
-    _profile_tick("8 llava serve", backend, reqs, slots=16)
-    print(f"[8 llava serve] tick profile wall {time.perf_counter() - t0:.2f} s")
+    _time_tick("8 llava serve", backend, reqs, slots=16)
     return serve, chunked
 
 
@@ -790,17 +792,15 @@ def main() -> int:
     k1 = _phase("3 K1", phase_k1, dev)
     k3 = _phase("4 K3", phase_k3, dev)
     k2 = _phase("5 K2", phase_k2, dev)
-    # Qwen first: the LLaVA serve phase ends with a profiled tick, and the
-    # profiler slows what runs after it
     paths = {}
-    paths["qwen"], backend = _phase("7 qwen", phase_qwen, dev)
-    paths["qwen_serve"] = _phase("8 qwen serve", phase_qwen_serve, backend)
-    del backend
-    gc.collect()                 # free the Qwen weights before LLaVA's
-    torch.cuda.empty_cache()
     paths["llava"], backend = _phase("6 llava", phase_slice, dev)
     paths["llava_serve"], paths["llava_chunked"] = _phase(
         "8 llava serve", phase_llava_serve, backend)
+    del backend
+    gc.collect()                 # free the LLaVA weights before Qwen's
+    torch.cuda.empty_cache()
+    paths["qwen"], backend = _phase("7 qwen", phase_qwen, dev)
+    paths["qwen_serve"] = _phase("8 qwen serve", phase_qwen_serve, backend)
     del backend
     gc.collect()
     torch.cuda.empty_cache()
@@ -820,12 +820,12 @@ def main() -> int:
          "source": "attwarp_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "attwarp_tpu/models/llama.py:218",
          **launches("flash_prefill"), **k2["qwen7b"],
-         "llava7b": k2["llava7b"]},
+         **{k: k2[k] for k in ("llava7b", "llava7b_serve", "qwen7b_serve")}},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/decode_attn_int8.cu",
          "replaces": "attwarp_tpu/ops/pallas_decode_attn.py:284",
          **launches("decode_attn_int8"), **k3["llava7b"],
-         "qwen7b": k3["qwen7b"]},
+         **{k: k3[k] for k in ("qwen7b", "llava7b_serve", "qwen7b_serve")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

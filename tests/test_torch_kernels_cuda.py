@@ -127,8 +127,10 @@ def _k2_case(dev, B, T, H, kvH, seed):
 @pytest.mark.parametrize("B,T,H,kvH", [
     (4, 640, 32, 32),   # LLaVA-1.5-7B prefill
     (4, 640, 28, 4),    # Qwen2-VL-7B prefill (GQA, n_rep 7)
+    (8, 704, 32, 32),   # LLaVA-1.5-7B serving admission group
+    (8, 704, 28, 4),    # Qwen2-VL-7B serving admission group
     (3, 200, 28, 4),    # ragged T: no multiple of the 64-row tiles
-], ids=["mha", "gqa", "ragged"])
+], ids=["mha", "gqa", "mha_serve", "gqa_serve", "ragged"])
 def test_k2_cuda_matches_plain(cuda, B, T, H, kvH):
     """Left padding that differs per row. The kernel keeps q.k and p.v in f32
     where the plain version rounds them to bf16: cos > 0.999 and max-abs
