@@ -33,9 +33,9 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # img, map_x, map_y, out, B, H, W, C, H_out, W_out, stream
     "attwarp_warp_resample": [_VOID] * 4 + [_INT] * 6 + [_VOID],
-    # q, k_q, k_s, v_q, v_s, mask, out, L, B, S, H, kvH, hd, layer,
-    # sm_scale, stream
-    "attwarp_decode_attn_int8": [_VOID] * 7 + [_INT] * 7
+    # q, k_q, k_s, v_q, v_s, mask, out, scratch, L, B, S, H, kvH, hd, layer,
+    # n_split, chunk, sm_scale, stream
+    "attwarp_decode_attn_int8": [_VOID] * 8 + [_INT] * 9
     + [ctypes.c_float, _VOID],
     # q, k, v, mask, out, B, T, H, kvH, hd, sm_scale, stream
     "attwarp_flash_prefill": [_VOID] * 5 + [_INT] * 5 + [ctypes.c_float, _VOID],

@@ -15,7 +15,8 @@ index: head ``h`` reads kv head ``h // (H // kvH)``, with no repeated copy.
 - CPU tensors: ``flash_prefill_plain``, the same function as dense masked
   attention (dots in q's dtype, f32 softmax, as ``models/llama.py::_attn``).
 - CUDA tensors: ``csrc/flash_prefill.cu`` (bf16 in and out, f32 softmax and
-  accumulation; head_dim 128, any T), or an exception.
+  accumulation; head_dim 128, any T; TMA loads and wgmma), or an
+  exception.
 
 Replaces the TPU kernel ``attwarp_tpu/models/llama.py:218`` ``_flash_attn``
 (JAX's Pallas TPU ``flash_attention`` with segment ids).

@@ -45,6 +45,17 @@ NVIDIA GPU.
    same cache type, left-padded to the same bucket; the chunked engine
    (P=128) gives those of ``ServeEngine`` without ``+flash``.
 
+Steps 3-5 time each kernel at its main-path shapes (K2 and K3 with L2
+flushed before every call, as a prefill or a decode step finds its layer's
+tensors cold in HBM; their time with L2 warm is reported beside it as
+``warm_ms``) beside its plain version, the least time the card could take
+for the same work (``kernels/roofline.py``: bytes over 3.35 TB/s or
+operations over the peak rate of their type, whichever is larger) and one
+PyTorch call computing the same function where there is one:
+``F.grid_sample`` for K1 and
+``F.scaled_dot_product_attention`` (fastest backend that takes a bool
+mask) for K2, each checked to agree with the plain version; none for K3.
+
 Run from the repo root:  python3 chip_smoke.py
 Exits non-zero on any failure and when no CUDA device is present. The last
 line of stdout is {"ok": true, "device": {...}}; the line before it lists
@@ -61,30 +72,76 @@ import sys
 import time
 
 
-def cuda_ms(fn, iters: int) -> float:
+L2_FLUSH_BYTES = 256 << 20   # over five times the H100's 50 MB L2
+_flush_buf = []
+
+
+def _flush_l2():
+    """Reads a buffer larger than L2, so the next call finds its inputs in
+    HBM (a read leaves no dirty lines to write back during that call)."""
+    import torch
+
+    if not _flush_buf:
+        _flush_buf.append(torch.ones(L2_FLUSH_BYTES // 4, device="cuda"))
+    _flush_buf[0].sum()
+
+
+def cuda_ms(fn, iters: int, cold: bool = False) -> float:
     """Mean milliseconds per call of ``fn`` over ``iters`` calls, by CUDA
     events, after one warm-up call. A GPU spin queued first lets the host
     enqueue every call before the device reaches them, so the events time
-    back-to-back device work, not the host's launch rate."""
+    back-to-back device work, not the host's launch rate. ``cold``: L2 is
+    flushed before every call, outside its events."""
     import torch
 
     fn()
+    if cold:
+        _flush_l2()
     torch.cuda.synchronize()
     torch.cuda._sleep(100_000_000)   # ~50 ms at H100 clocks
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    if not cold:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        _flush_l2()
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
-def alternate_ms(plain, kernel, iters: int):
-    """Plain, kernel, kernel, plain; the lower of each pair."""
-    p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kernel, kernel, plain))
-    return min(k1, k2), min(p1, p2)
+def alternate_ms(fns: dict, iters: int, cold: bool = False) -> dict:
+    """Each call of ``fns`` timed in order and then in reverse order (plain,
+    kernel, library, library, kernel, plain); the lower of each pair, by
+    name."""
+    order = list(fns) + list(fns)[::-1]
+    times = [(name, cuda_ms(fns[name], iters, cold)) for name in order]
+    return {name: min(t for n, t in times if n == name) for name in fns}
+
+
+def with_bound(entry: dict, work, peak=None) -> dict:
+    """``entry`` (with "ms") plus the card's least time for ``work`` (bytes,
+    flops) and the share of it the kernel reaches."""
+    from attwarp_tpu_torch.kernels import roofline
+
+    b = roofline.bound(*work, **({"peak_flops": peak} if peak else {}))
+    return {**entry, **b, "pct_of_bound": 100.0 * b["bound_ms"] / entry["ms"]}
+
+
+def _bound_text(e: dict) -> str:
+    lib = (f"{e['library']} {e['library_ms']:.4f} ms" if e["library_ms"] is not None
+           else f"none ({e['library_note']})")
+    return (f" | bound {e['bound_ms']:.4f} ms ({e['bound_by']}, {e['bound_peak']}), "
+            f"{e['pct_of_bound']:.1f}% of bound | library {lib}")
 
 
 class TimedBackend:
@@ -162,6 +219,7 @@ def phase_build():
 def phase_k1(dev):
     import torch
 
+    from attwarp_tpu_torch.kernels import roofline
     from attwarp_tpu_torch.kernels.warp_resample import warp_resample
     from attwarp_tpu_torch.warp.blend import mota_mask
     from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
@@ -178,12 +236,32 @@ def phase_k1(dev):
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     tol = 1e-3 * 255
-    ms, plain_ms = alternate_ms(lambda: remap_bilinear_separable(img, mx, my),
-                                lambda: warp_resample(img, mx, my), 50)
+    # the yardstick: grid_sample on an NCHW copy, border padding (=
+    # BORDER_REPLICATE), align_corners so that -1 and 1 are pixel centres 0
+    # and W-1; the copy and the grid are made outside the timing
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    gx = (2 * mx / (640 - 1) - 1)[:, None, :].expand(4, 500, 500)
+    gy = (2 * my / (512 - 1) - 1)[:, :, None].expand(4, 500, 500)
+    grid = torch.stack((gx, gy), dim=-1).contiguous()
+
+    def library():
+        return torch.nn.functional.grid_sample(img_nchw, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
+    t = alternate_ms({"plain": lambda: remap_bilinear_separable(img, mx, my),
+                      "kernel": lambda: warp_resample(img, mx, my),
+                      "library": library}, 50)
+    e = with_bound({"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+                    "library_ms": t["library"], "library": "F.grid_sample",
+                    "library_max_abs_err": lib_err},
+                   roofline.k1_work(4, 512, 640, 3, 500, 500), roofline.F32_FLOPS)
     print(f"[3 K1 warp_resample] (4,512,640,3)->(4,500,500,3) max|kernel-plain| "
-          f"{err:.6g} (tol {tol:.3g}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{err:.6g} (tol {tol:.3g}), max|grid_sample-plain| {lib_err:.6g} | kernel "
+          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms" + _bound_text(e))
     check(got.shape == (4, 500, 500, 3) and err <= tol, "K1 disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    check(lib_err <= tol, "the grid_sample yardstick computes another function")
+    return e
 
 
 def _serve_windows(B):
@@ -227,6 +305,7 @@ def _compare(got, ref):
 def phase_k3(dev):
     import torch
 
+    from attwarp_tpu_torch.kernels import roofline
     from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
 
     sm = 1.0 / 128 ** 0.5
@@ -257,11 +336,20 @@ def phase_k3(dev):
                 f"= 2% of max|ref| {mag:.4g}); vs f32 plain cos {cos32:.6f} max|d| "
                 f"{err32:.4g}")
         if timed:
-            ms, plain_ms = alternate_ms(
-                lambda: decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm),
-                lambda: decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm), 50)
-            line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            def t_kernel():
+                return decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer, sm)
+
+            t = alternate_ms({
+                "plain": lambda: decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm),
+                "kernel": t_kernel}, 200, cold=True)
+            warm = cuda_ms(t_kernel, 200)
+            out[name] = e = with_bound(
+                {"max_abs_err": err, "ms": t["kernel"], "warm_ms": warm, "plain_ms": t["plain"],
+                 "library_ms": None, "library_note": "no single PyTorch call takes an "
+                 "int8 cache with per-token scales"},
+                roofline.k3_work(B, S, H, kvH, int(mask.sum().item())))
+            line += (f" | kernel {t['kernel']:.4f} ms (L2 warm {warm:.4f}), plain "
+                     f"{t['plain']:.4f} ms" + _bound_text(e))
         print(line)
         check(bool(torch.isfinite(got).all()) and cos > 0.999 and cos32 > 0.999
               and err <= tol and err32 <= 2e-2 * mag32,
@@ -282,9 +370,64 @@ def _k2_case(dev, B, T, H, kvH, seed):
     return q, k, v, torch.arange(T, device=dev)[None, :] >= pad
 
 
+def _sdpa_yardstick(q, k, v, mask, sm, ref32):
+    """K2's library yardstick: ``F.scaled_dot_product_attention`` on q, k, v
+    in (B, H, T, 128) with a (B, 1, T, T) bool mask of causal and same
+    segment, all made here, outside any timing. Tries the cuDNN and the
+    memory-efficient backends, GQA by ``enable_gqa`` and, where a backend
+    refuses that, with K/V repeated to H heads; keeps each candidate whose
+    output holds K2's bars against the f32 plain version and returns the
+    fastest as (its name, a call, what was tried), or (None, None, what
+    was tried)."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, T, H, hd = q.shape
+    kvH = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
+    am = (causal[None] & (mask[:, :, None] == mask[:, None, :]))[:, None].contiguous()
+    variants = [("gqa", kt, vt, {"enable_gqa": True})] if H != kvH else [("mha", kt, vt, {})]
+    if H != kvH:
+        variants.append(("kv repeated", kt.repeat_interleave(H // kvH, dim=1).contiguous(),
+                         vt.repeat_interleave(H // kvH, dim=1).contiguous(), {}))
+    tried, good = [], []
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        for vname, kk, vv, kw in variants:
+            def call(be=be, kk=kk, vv=vv, kw=kw):
+                with sdpa_kernel([be]):
+                    return F.scaled_dot_product_attention(qt, kk, vv, attn_mask=am,
+                                                          scale=sm, **kw)
+            label = f"{be.name.lower()} {vname}"
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    got = call().transpose(1, 2).reshape(B, T, H * hd)
+                    torch.cuda.synchronize()
+            except Exception as exc:   # a backend that refuses these inputs
+                tried.append(f"{label}: refused ({str(exc).splitlines()[0][:60]})")
+                continue
+            cos, err, mag = _compare(got, ref32)
+            if not (cos > 0.999 and err <= 2e-2 * mag):
+                tried.append(f"{label}: disagrees (cos {cos:.6f}, max|d| {err:.4g})")
+                continue
+            ms = cuda_ms(call, 20, cold=True)
+            tried.append(f"{label}: {ms:.4f} ms, cos {cos:.6f}")
+            good.append((ms, label, call))
+            break            # enable_gqa taken: no need to repeat K/V
+    if not good:
+        return None, None, "; ".join(tried)
+    _, label, call = min(good, key=lambda g: g[0])
+    return f"F.scaled_dot_product_attention ({label})", call, "; ".join(tried)
+
+
 def phase_k2(dev):
     import torch
 
+    from attwarp_tpu_torch.kernels import roofline
     from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
 
     sm = 1.0 / 128 ** 0.5
@@ -308,16 +451,27 @@ def phase_k2(dev):
                 f"vs plain cos {cos:.6f} max|d| {err:.4g} (tol {tol:.4g} = 2% of "
                 f"max|ref| {mag:.4g}); vs f32 plain cos {cos32:.6f} max|d| {err32:.4g}")
         if timed:
-            ms, plain_ms = alternate_ms(
-                lambda: flash_prefill_plain(q, k, v, mask, sm),
-                lambda: flash_prefill(q, k, v, mask, sm), 20)
-            line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            lib_name, library, tried = _sdpa_yardstick(q, k, v, mask, sm, ref32)
+            fns = {"plain": lambda: flash_prefill_plain(q, k, v, mask, sm),
+                   "kernel": lambda: flash_prefill(q, k, v, mask, sm)}
+            if library is not None:
+                fns["library"] = library
+            t = alternate_ms(fns, 50, cold=True)
+            warm = cuda_ms(fns["kernel"], 50)
+            pads = (~mask).sum(dim=1).tolist()
+            out[name] = e = with_bound(
+                {"max_abs_err": err, "ms": t["kernel"], "warm_ms": warm, "plain_ms": t["plain"],
+                 "library_ms": t.get("library"), "library": lib_name,
+                 "library_note": tried},
+                roofline.k2_work(B, T, H, kvH, pads))
+            line += (f" | kernel {t['kernel']:.4f} ms (L2 warm {warm:.4f}), plain "
+                     f"{t['plain']:.4f} ms" + _bound_text(e) + f" [{tried}]")
         print(line)
         check(bool(torch.isfinite(got).all()) and cos > 0.999 and cos32 > 0.999
               and err <= tol and err32 <= 2e-2 * ref32.abs().max().item(),
               f"K2 disagrees with its plain version ({name})")
         del q, k, v, mask, got, ref, ref32
+    _flush_buf.clear()
     torch.cuda.empty_cache()
     return out
 

@@ -25,7 +25,14 @@ from attwarp_tpu.ops.pallas_decode_attn import (
     prepare_decode_attn_operands,
 )
 
-from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
+from attwarp_tpu_torch.kernels.decode_attn import (
+    BLOCKS_PER_SM,
+    MAX_LEN,
+    decode_attn_int8,
+    decode_attn_plain,
+    decode_attn_split_plain,
+    decode_split_plan,
+)
 from attwarp_tpu_torch.models.llama import LlamaConfig, _attn_quantcache
 from attwarp_tpu_torch.numerics.quant import dequantize_kv, quantize_kv
 
@@ -174,3 +181,74 @@ def test_plain_serving_masks():
     v0 = T["v_q"][1, 1, 0].float() * T["v_s"][1, 1, 0][:, None]
     torch.testing.assert_close(got[1].reshape(2, 2, 16), v0[:, None].expand(2, 2, 16),
                                rtol=1e-6, atol=1e-6)
+
+
+# (H, kvH, S, n_split, chunk, windows): each row's [start, cur] window, or
+# None for a row with no valid position (a free slot)
+SPLIT_CASES = {
+    "mha": (4, 4, 64, 4, 16, [(5, 60), (0, 63)]),
+    "gqa": (8, 2, 64, 4, 16, [(5, 60), (0, 63)]),
+    "single_split": (8, 2, 48, 1, 48, [(3, 40), (0, 47)]),
+    "ragged_last_chunk": (8, 2, 70, 5, 16, [(2, 69), (0, 65)]),
+    "split_masked_by_padding": (4, 2, 64, 4, 16, [(37, 63), (20, 50)]),
+    "free_slot_row": (4, 2, 64, 4, 16, [(9, 55), None]),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_merge_plain_matches(case):
+    """The CUDA kernel's split-and-merge arithmetic (``decode_attn_split_plain``)
+    == ``decode_attn_plain`` and == JAX ``_attn_quantcache`` in f32, to
+    1e-5 (only the summation order differs). A row with no valid position
+    returns zeros in both port forms (JAX's softmax over an all-masked row
+    is left out of that comparison)."""
+    H, kvH, S, n_split, chunk, windows = SPLIT_CASES[case]
+    L, B, hd, layer = 2, len(windows), 32, 1
+    assert -(-S // chunk) == n_split
+    c = _case(L, B, S, H, kvH, hd, seed=7)
+    T = {k: torch.as_tensor(c[k]) for k in ("k_q", "k_s", "v_q", "v_s")}
+    mask = torch.zeros((B, S), dtype=torch.bool)
+    for b, w in enumerate(windows):
+        if w is not None:
+            mask[b, w[0]:w[1] + 1] = True
+    q = torch.as_tensor(c["q"])[:, 0]
+    sm = 1.0 / np.sqrt(hd)
+    got = decode_attn_split_plain(q, *T.values(), mask, layer, sm, n_split, chunk)
+    ref = decode_attn_plain(q, *T.values(), mask, layer, sm)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    jcfg = JLlamaConfig(vocab_size=8, hidden_size=H * hd, intermediate_size=8,
+                        num_hidden_layers=L, num_attention_heads=H,
+                        num_key_value_heads=kvH)
+    jref, _ = j_attn_quantcache(
+        jnp.asarray(c["q"]), *(jnp.asarray(c[k][layer]) for k in ("k_q", "k_s", "v_q", "v_s")),
+        jnp.asarray(mask.numpy())[:, None, :], jcfg, want_probs=False)
+    jref = np.asarray(jref).reshape(B, H, hd)
+    for b, w in enumerate(windows):
+        if w is None:
+            assert not got[b].any()
+        else:
+            np.testing.assert_allclose(got[b].numpy(), jref[b], atol=1e-5)
+
+
+@pytest.mark.parametrize("B,kvH,S", [(4, 32, 704), (4, 4, 704), (16, 32, 768), (8, 4, 768),
+                                     (1, 4, 16), (3, 4, 200), (1, 32, 1000), (1, 1, 4100),
+                                     (2, 4, 40000)])
+def test_split_plan_covers_and_fills(B, kvH, S):
+    """Every position in exactly one split, no split empty or longer than
+    ``MAX_LEN`` (so any S has a plan), and at the four timed shapes (the
+    first four) on the H100's 132 SMs the grid the plan aims for: about
+    ``BLOCKS_PER_SM`` blocks per SM (chunks round up to 16 positions), the
+    LLaVA serving pool's plane streamed in splits of ``STREAM_LEN``."""
+    n_split, chunk = decode_split_plan(B, kvH, S, 132)
+    owner = np.zeros(S, int)
+    for s in range(n_split):
+        lo, hi = s * chunk, min(S, (s + 1) * chunk)
+        assert hi > lo
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    assert 0 < chunk <= MAX_LEN and chunk % 16 == 0
+    blocks = {(4, 32, 704): (3, 384), (4, 4, 704): (15, 240), (16, 32, 768): (6, 3072),
+              (8, 4, 768): (8, 256)}
+    if (B, kvH, S) in blocks:
+        assert (n_split, n_split * kvH * B) == blocks[(B, kvH, S)]
+        assert n_split * kvH * B >= 0.8 * BLOCKS_PER_SM * 132

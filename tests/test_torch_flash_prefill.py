@@ -146,3 +146,67 @@ def test_llava_generate_flash_matches_jax():
         torch.as_tensor(start), extract_layer=1, max_new_tokens=3, use_flash=True)
     np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), atol=1e-5)
+
+
+# The roofline helper (``kernels/roofline.py``) at the shapes chip_smoke.py
+# times, against the closed forms written out: K2 reads q, k, v and the
+# mask once and writes out once (bf16), and does 4 * 128 flops per allowed
+# (query, key) pair and head; the pairs of a row with p pads are the causal
+# triangles of its padding and of its valid part.
+K2_PADS = lambda B: [(37 * b) % 61 for b in range(B)]   # chip_smoke._k2_case
+
+
+@pytest.mark.parametrize("B,T,H,kvH", [(4, 640, 32, 32), (4, 640, 28, 4),
+                                       (8, 704, 32, 32), (8, 704, 28, 4)])
+def test_roofline_k2_counts(B, T, H, kvH):
+    from attwarp_tpu_torch.kernels import roofline
+
+    pads = K2_PADS(B)
+    nbytes, flops = roofline.k2_work(B, T, H, kvH, pads)
+    assert nbytes == 2 * (B * T * H * 128 * 2 + 2 * B * T * kvH * 128) + B * T
+    pairs = sum(p * (p + 1) // 2 + (T - p) * (T - p + 1) // 2 for p in pads)
+    assert flops == 4 * 128 * H * pairs
+    if (B, T, H) == (4, 640, 32):   # pads 0, 37, 13, 50, written out
+        assert pads == [0, 37, 13, 50]
+        assert nbytes == 83_888_640 and flops == 4 * 128 * 32 * 760_518
+    b = roofline.bound(nbytes, flops)
+    assert b["bound_ms"] == pytest.approx(1e3 * max(nbytes / 3.35e12, flops / 989e12))
+    assert b["bound_by"] == ("bytes" if nbytes / 3.35e12 >= flops / 989e12 else "operations")
+
+
+def _k3_windows(B, S, serve):
+    """chip_smoke's K3 masks: [pad, cur] per row, or the serving pool's
+    windows (a retired slot's [0, 0] and a free slot's [0, 17] last)."""
+    if not serve:
+        return [((37 * b) % 64, S - 44 + 3 * b) for b in range(B)]
+    rows = [((37 * b) % 64, (640, 704)[b % 2] + (11 * b) % 60) for b in range(B - 2)]
+    return rows + [(0, 0), (0, 17)]
+
+
+@pytest.mark.parametrize("B,S,H,kvH,serve", [(4, 704, 32, 32, False), (4, 704, 28, 4, False),
+                                             (16, 768, 32, 32, True), (8, 768, 28, 4, True)])
+def test_roofline_k3_counts(B, S, H, kvH, serve):
+    """K3 reads only the allowed positions' int8 K and V rows (128 bytes
+    each) and their two f32 scales for every kv head, q and out in bf16,
+    and the mask; 4 * 128 flops per allowed position and query head."""
+    from attwarp_tpu_torch.kernels import roofline
+
+    n_valid = sum(cur - start + 1 for start, cur in _k3_windows(B, S, serve))
+    nbytes, flops = roofline.k3_work(B, S, H, kvH, n_valid)
+    assert nbytes == n_valid * kvH * (128 + 128 + 4 + 4) + 2 * B * H * 128 * 2 + B * S
+    assert flops == 4 * 128 * H * n_valid
+    if not serve and H == 32:   # windows [0, 660], [37, 663], [10, 666], [47, 669]
+        assert n_valid == 2568 and nbytes == 21_762_816
+    assert roofline.bound(nbytes, flops)["bound_by"] == "bytes"
+
+
+def test_roofline_k1_counts():
+    """K1 at the pipeline's warp, (4, 512, 640, 3) -> 500 x 500, all f32:
+    image and maps in, warped image out; 9 flops per output value."""
+    from attwarp_tpu_torch.kernels import roofline
+
+    nbytes, flops = roofline.k1_work(4, 512, 640, 3, 500, 500)
+    assert nbytes == 4 * (4 * 512 * 640 * 3 + 4 * (500 + 500) + 4 * 500 * 500 * 3) == 27_744_640
+    assert flops == 9 * 4 * 500 * 500 * 3
+    b = roofline.bound(nbytes, flops, roofline.F32_FLOPS)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] == pytest.approx(27_744_640 / 3.35e9)

@@ -115,6 +115,39 @@ def test_k3_cuda_serving_masks(cuda, L, H, kvH):
         assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,S,H,kvH,window", [
+    (2, 9, 96, 32, 32, None),         # S within one chunk: a single split
+    (2, 4, 704, 32, 32, (650, 690)),  # every split but one (or two) masked
+    (2, 4, 704, 28, 4, (300, 330)),   # the same under GQA
+    (32, 1, 704, 32, 32, None),       # B=1: the most splits
+    (28, 1, 704, 28, 4, None),
+    (2, 2, 704, 32, 2, None),         # n_rep 16: two blocks of 8 heads per kv head
+    (2, 3, 704, 24, 2, None),         # n_rep 12: a block of 8 heads and one of 4
+    (2, 2, 5000, 32, 32, None),       # S over many 256-position splits
+], ids=["one_chunk", "one_split_valid", "one_split_valid_gqa", "b1", "b1_gqa", "rep16",
+        "rep12", "long_s"])
+def test_k3_cuda_split_edges(cuda, L, B, S, H, kvH, window):
+    """Edges of the split plan, within the bars of
+    ``test_k3_cuda_matches_plain``: a window that leaves all splits but the
+    one or two it falls in masked (those load nothing), S inside one chunk,
+    and B=1."""
+    q, k_q, k_s, v_q, v_s, mask = _k3_case(cuda, L, B, S, H, kvH, seed=12)
+    if window is not None:
+        mask = torch.zeros_like(mask)
+        mask[:, window[0]:window[1] + 1] = True
+    args = (k_q, k_s, v_q, v_s, mask, L - 1, 1.0 / np.sqrt(128))
+    got = decode_attn_int8(q, *args).float()
+    ref = decode_attn_plain(q, *args).float()
+    ref32 = decode_attn_plain(q.float(), *args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for r in (ref, ref32):
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), r.flatten(), dim=0)
+        assert cos.item() > 0.999
+        assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+
+
 def _k2_case(dev, B, T, H, kvH, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((B, T, n, 128), generator=g, device=dev).to(torch.bfloat16)
@@ -129,7 +162,7 @@ def _k2_case(dev, B, T, H, kvH, seed):
     (4, 640, 28, 4),    # Qwen2-VL-7B prefill (GQA, n_rep 7)
     (8, 704, 32, 32),   # LLaVA-1.5-7B serving admission group
     (8, 704, 28, 4),    # Qwen2-VL-7B serving admission group
-    (3, 200, 28, 4),    # ragged T: no multiple of the 64-row tiles
+    (3, 200, 28, 4),    # ragged T: no multiple of the 128-row tiles
 ], ids=["mha", "gqa", "mha_serve", "gqa_serve", "ragged"])
 def test_k2_cuda_matches_plain(cuda, B, T, H, kvH):
     """Left padding that differs per row. The kernel keeps q.k and p.v in f32
@@ -144,6 +177,40 @@ def test_k2_cuda_matches_plain(cuda, B, T, H, kvH):
     ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), mask, sm)
     torch.cuda.synchronize()
     assert flash_prefill.launches == before + 1
+    assert got.shape == (B, T, H * 128) and torch.isfinite(got).all()
+    for r in (ref, ref32):
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), r.flatten(), dim=0)
+        assert cos.item() > 0.999
+        assert (got - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,kvH,pads", [
+    (2, 96, 28, 4, [0, 40]),            # T < 128: one query tile, its rows partly below 0
+    (3, 333, 32, 32, [0, 17, 90]),      # T no multiple of the 128-row tile (MHA pairs)
+    (3, 333, 28, 4, [5, 0, 70]),        # the same under GQA
+    (2, 640, 28, 4, [150, 300]),        # padding wider than one 64-key tile
+    (2, 704, 32, 32, [129, 260]),       # the same under MHA, ragged tile count
+    (2, 16717, 2, 1, [100, 16500]),     # T past the 16384 positions whose segments
+    (2, 16717, 2, 2, [16500, 7]),       # sit in shared memory, padding across it
+], ids=["t96", "t333_mha", "t333_gqa", "wide_pad_gqa", "wide_pad_mha", "long_t_gqa",
+        "long_t_mha"])
+def test_k2_cuda_tile_edges(cuda, B, T, H, kvH, pads):
+    """Edges of the tiling, within the bars of ``test_k2_cuda_matches_plain``:
+    a T shorter than one query tile or no multiple of it (the tiles end at
+    T, so the first one has rows below 0), left padding wider than a key
+    tile (whole key tiles of padding are skipped for valid rows), and a T
+    past the 16384 positions whose segments the kernel keeps in shared
+    memory, with the padding ending on either side of it."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((B, T, n, 128), generator=g, device=cuda).to(torch.bfloat16)
+               for n in (H, kvH, kvH))
+    mask = torch.arange(T, device=cuda)[None, :] >= torch.tensor(pads, device=cuda)[:, None]
+    sm = 1.0 / np.sqrt(128)
+    got = flash_prefill(q, k, v, mask, sm).float()
+    ref = flash_prefill_plain(q, k, v, mask, sm).float()
+    ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), mask, sm)
+    torch.cuda.synchronize()
     assert got.shape == (B, T, H * 128) and torch.isfinite(got).all()
     for r in (ref, ref32):
         cos = torch.nn.functional.cosine_similarity(got.flatten(), r.flatten(), dim=0)
