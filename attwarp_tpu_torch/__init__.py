@@ -2,8 +2,8 @@
 
 The JAX package stays the reference; this package mirrors its subpackage
 and module names (``warp/``, ``extract/``, ``numerics/``, ``models/``,
-``serving/``, ``cli/``, ``pipeline.py``) so each counterpart is easy to
-find, and every module is tested against its JAX original on the CPU
+``serving/``, ``data/``, ``eval/``, ``testing/``, ``utils/``, ``cli/``,
+``pipeline.py``) so each counterpart is easy to find, and every module is tested against its JAX original on the CPU
 (``tests/test_torch_*.py``).
 
 Every TPU kernel of the JAX package has a hand-written CUDA counterpart

@@ -61,14 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def read_image(path: str) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
-
-
 def serve(backend, requests: List[Dict], *, slots: int = 8, max_seq: int = 768,
           steps_per_tick: int = 8, top_k: int = 0, seed: int = 0,
           chunked_prefill: int = 0):
@@ -96,6 +88,7 @@ def serve(backend, requests: List[Dict], *, slots: int = 8, max_seq: int = 768,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     from attwarp_tpu_torch.cli.process_dataset import make_backend
+    from attwarp_tpu_torch.data.imageio import read_rgb
 
     backend = make_backend(args.backend, layer_index=0, device=args.device)
     with open(args.jsonl) as f:
@@ -106,7 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for line in lines:
         ids = (line["input_ids"] if "input_ids" in line
                else backend.build_ids(line["question"]))
-        pixels = (backend._preprocess(read_image(line["image_path"]))
+        pixels = (backend._preprocess(read_rgb(line["image_path"]))
                   if line.get("image_path") else None)
         requests.append({
             "input_ids": np.asarray(ids, np.int64), "pixel_values": pixels,

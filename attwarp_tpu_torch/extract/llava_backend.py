@@ -25,6 +25,10 @@ from attwarp_tpu_torch.models.llava import LlavaModel, config_from_dict
 
 
 class LlavaBackend:
+    # extract/answer_batch take a (B, S, S, C) tensor on the model's device
+    supports_device_pixels = True
+    name = "llava-torch"
+
     def __init__(self, model: LlavaModel, tokenizer=None,
                  extract_layer: int = 20, kv_quant: bool = False,
                  use_flash: bool = False):
@@ -60,6 +64,10 @@ class LlavaBackend:
     @property
     def image_size(self) -> int:
         return self.model.cfg.vision.image_size
+
+    @property
+    def num_patches_side(self) -> int:
+        return self.model.cfg.vision.image_size // self.model.cfg.vision.patch_size
 
     def _preprocess(self, image: np.ndarray) -> np.ndarray:
         """One host image -> CLIP-normalized (S, S, 3) float32 pixels on the

@@ -29,6 +29,10 @@ from attwarp_tpu_torch.models.qwen2vl import Qwen2VLModel, config_from_dict, pat
 
 
 class Qwen2VLBackend:
+    # extract/answer_batch take a (B, S, S, C) tensor on the model's device
+    supports_device_pixels = True
+    name = "qwen2vl-torch"
+
     def __init__(self, model: Qwen2VLModel, tokenizer=None,
                  extract_layer: int = 20, image_size: int = 448,
                  kv_quant: bool = False, use_flash: bool = False):

@@ -1,5 +1,6 @@
-"""Bilinear resizes on the device (counterpart of ``resize_images_batch`` and
-``resize_scale_device`` in ``attwarp_tpu/extract/extraction.py``).
+"""Bilinear resizes on the device (counterpart of ``resize_images_batch``,
+``resize_scale_device``, ``_resize_for_backend`` and ``_to_uint8_rgb`` in
+``attwarp_tpu/extract/extraction.py``).
 
 They equal ``jax.image.resize(..., "linear")``, which antialiases when it
 downsamples (the triangle kernel is widened by the inverse scale) and
@@ -68,6 +69,33 @@ def to01_scale(arr: np.ndarray) -> float:
     if np.issubdtype(arr.dtype, np.integer):
         return 1.0 / 255.0
     return 1.0 / 255.0 if float(arr.max()) > 1.5 else 1.0
+
+
+def to_uint8_rgb(im: np.ndarray) -> np.ndarray:
+    """An image -> uint8: integer images are clipped to 0-255, float images
+    are [0, 1] and rounded from ``x * 255``."""
+    im = np.asarray(im)
+    if im.dtype == np.uint8:
+        return im
+    if np.issubdtype(im.dtype, np.integer):
+        return np.clip(im, 0, 255).astype(np.uint8)
+    return np.clip(np.rint(im * 255.0), 0, 255).astype(np.uint8)
+
+
+def resize_for_backend(im: np.ndarray, size: int) -> np.ndarray:
+    """One host image -> (size, size, C) float32 in [0, 1] on the host: to
+    [0, 1] by its dtype (a float image whose max is above 1.5 is 0-255),
+    then resized like ``jax.image.resize`` "linear"."""
+    arr = np.asarray(im)
+    if np.issubdtype(arr.dtype, np.integer):
+        arr = arr.astype(np.float32) / 255.0
+    else:
+        arr = arr.astype(np.float32)
+        if arr.max() > 1.5:
+            arr = arr / 255.0
+    if arr.shape[0] == size and arr.shape[1] == size:
+        return arr
+    return resize_linear(torch.as_tensor(arr)[None], (size, size))[0].numpy()
 
 
 def resize_images_batch(images: Sequence[np.ndarray], size: int,

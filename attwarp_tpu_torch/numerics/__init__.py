@@ -1,1 +1,1 @@
-"""int8 numerics: the KV-cache quantizer and the linear/logit forms."""
+"""Numerics: the int8 KV-cache quantizer, the linear/logit forms and adaptive pooling."""

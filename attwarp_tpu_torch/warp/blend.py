@@ -12,7 +12,8 @@ JAX) and applied as f32 matmuls. On the card those matmuls need
 TF32 would cost the 1-LSB mask parity.
 
 Functions take a leading batch dimension: ``mota_mask`` maps ``(B, h, w)``
-to ``(B, H, W)``.
+to ``(B, H, W)``. ``blend_mask`` (one image's mask and JET overlay, the
+dataset driver's) and ``merge_gray`` work on one host image.
 """
 
 from __future__ import annotations
@@ -158,3 +159,51 @@ def mota_mask(att: torch.Tensor, out_hw: Tuple[int, int],
         m8 = quantize_uint8_trunc(m).to(torch.float32)
         return resize_lanczos(m8, out_hw, uint8_mode=True).to(torch.uint8)
     return torch.clamp(resize_lanczos(m * 255.0, out_hw), 0.0, 255.0)
+
+
+def quantize_uint8_round(x: torch.Tensor) -> torch.Tensor:
+    """PIL resample output clamp: round half to even, clip to [0, 255]."""
+    return torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
+
+
+def blend_mask(image_rgb: np.ndarray, att, enhance_coe: float = 10.0,
+               kernel_size: int = 3, grayscale: float = 0.0,
+               device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """One image's MOTA mask and JET overlay (reference llava.py:240-270).
+
+    ``image_rgb (H, W, 3)`` uint8 on the host; ``att (h, w)`` an array or a
+    tensor. The mask runs on ``device``, the card unless the caller asks for
+    the CPU (without a card, ``cuda`` raises). Returns ``(overlay_rgb,
+    mask)``, both uint8 on the host, the mask
+    at image size, quantized like the reference. The overlay
+    min-max stretches the mask to 0-255 (``cv2.normalize`` NORM_MINMAX),
+    colormaps it and blends with ``alpha = grayscale if 0 < grayscale <= 1
+    else 0.5``."""
+    from attwarp_tpu_torch.utils.colormap import apply_jet
+    from attwarp_tpu_torch.utils.device import require_device
+
+    device = require_device(device, "blend_mask")
+    H, W = image_rgb.shape[0], image_rgb.shape[1]
+    if not isinstance(att, torch.Tensor):
+        att = torch.as_tensor(np.asarray(att, np.float32))
+    att = att.to(device=device, dtype=torch.float32)
+    mask = mota_mask(att[None], (H, W), enhance_coe=enhance_coe,
+                     kernel_size=kernel_size)[0].cpu().numpy()
+    m = mask.astype(np.float64)
+    lo, hi = m.min(), m.max()
+    m = (m - lo) * (255.0 / (hi - lo)) if hi > lo else np.zeros_like(m)
+    heat = apply_jet(np.clip(np.rint(m), 0, 255).astype(np.uint8))
+    alpha = grayscale if isinstance(grayscale, (int, float)) and 0 < grayscale <= 1 else 0.5
+    overlay = np.clip(np.rint(image_rgb.astype(np.float64) * (1 - alpha)
+                              + heat.astype(np.float64) * alpha), 0, 255).astype(np.uint8)
+    return overlay, mask
+
+
+def merge_gray(mask: np.ndarray, image_rgb: np.ndarray,
+               gray_scale: float = 200.0) -> np.ndarray:
+    """Gray blend (llava.py:198-205): ``image * m + (1 - m) * gray`` with
+    ``m = mask / 255``, truncated to uint8."""
+    m = mask.astype(np.float32) / 255.0
+    gray = np.full_like(image_rgb, gray_scale, dtype=np.float32)
+    out = image_rgb.astype(np.float32) * m[..., None] + (1 - m[..., None]) * gray
+    return out.astype(np.uint8)

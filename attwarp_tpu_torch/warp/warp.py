@@ -1,5 +1,5 @@
-"""Batched attention-guided warp (counterpart of
-``attwarp_tpu/warp/warp.py::warp_batch_by_attention``).
+"""Attention-guided warp (counterpart of ``warp_batch_by_attention`` and
+``warp_image_by_attention`` in ``attwarp_tpu/warp/warp.py``).
 
 The grid maps (transform -> marginals -> CDF -> inverse map) are plain
 PyTorch; the resample is kernel K1 (``kernels/warp_resample.py``) at every
@@ -53,3 +53,22 @@ def warp_batch_by_attention(
                                   new_height, params)
     return warp_resample(images.to(torch.float32).contiguous(),
                          map_x.contiguous(), map_y.contiguous())
+
+
+def warp_image_by_attention(
+    image: torch.Tensor,
+    att_map: torch.Tensor,
+    new_width: int,
+    new_height: int,
+    params: WarpParams = WarpParams(),
+) -> torch.Tensor:
+    """Warp one ``image (H, W[, C])`` by ``att_map (H, W)`` to ``(new_height,
+    new_width[, C])`` f32 (reference new_method.py:198-283): a batch of one
+    through ``warp_batch_by_attention``, so K1 on a CUDA tensor and its
+    plain version on a CPU tensor. The reference resizes the image to the
+    map first (``warp/io.py::save_warped_image`` does too); a map of
+    another size is inverted at its own resolution and rescaled, as in
+    ``warp_batch_by_attention``."""
+    x = image if image.ndim == 3 else image[..., None]
+    out = warp_batch_by_attention(x[None], att_map[None], new_width, new_height, params)[0]
+    return out if image.ndim == 3 else out[..., 0]

@@ -2,20 +2,26 @@
 """Smoke run of the PyTorch + CUDA port (``attwarp_tpu_torch``) on one
 NVIDIA GPU.
 
-1. Names the card (and its power limit, from nvidia-smi); turns TF32 off.
+1. Names the card (and its power limit, from nvidia-smi); turns TF32 off;
+   reports whether Pillow and OpenCV import and, in a child process, times
+   the port's PNG decoder against Pillow's.
 2. Builds the port's CUDA kernels from this checkout with nvcc (one nvcc
    per source, all at once).
 3. Kernel K1 (warp resample) against its plain PyTorch version at the
-   pipeline's shape: (4, 512, 640, 3) -> 500x500.
+   pipeline's shape, (4, 512, 640, 3) -> 500x500, and at the dataset
+   driver's, one 512x512 scene per launch.
 4. Kernel K3 (int8-cache decode attention) against its plain version at
    LLaVA-1.5-7B and Qwen2-VL-7B decode geometry (B=4, S=704; 32/32 and
    28/4 heads), at their serving geometry (B=16 and B=8 slots, S=768)
    with per-slot [start, cur] windows, a retired slot's [0, 0] and a free
-   slot's [0, j], plus a small GQA case.
+   slot's [0, j], at step 10's LLaVA-1.5-7B geometry (the driver's B=8
+   extraction decode and the harness's 8-slot engine, both S=704), plus a
+   small GQA case.
 5. Kernel K2 (flash prefill) against its plain version at LLaVA-1.5-7B and
    Qwen2-VL-7B prefill geometry (B=4, T=640; 32/32 and 28/4 heads), at
-   their admission geometry (groups of 8 at T=704), all with per-row left
-   padding, plus a ragged T=200.
+   their admission geometry (groups of 8 at T=704), at the dataset
+   driver's LLaVA-1.5-7B extraction prefill (B=8, T=640), all with per-row
+   left padding, plus a ragged T=200.
 6. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
@@ -44,15 +50,28 @@ NVIDIA GPU.
    tokens) the greedy tokens of its own ``generate_with_attention`` on the
    same cache type, left-padded to the same bucket; the chunked engine
    (P=128) gives those of ``ServeEngine`` without ``+flash``.
+10. The dataset driver and the eval harness on step 6's LLaVA-1.5-7B
+    weights, ``+kv8+flash``: 16 code-tag scenes (512 px, seed 0) through
+    ``cli.process_dataset.process_dataset`` (batches of 8, 20 new tokens),
+    then ``eval.harness.evaluate_textvqa_accuracy`` on the warped and the
+    original images through ``EngineAnswerBackend`` (8 slots, 16 new
+    tokens). Checks the artifact tree, that none of the driver's and the
+    harness's fallbacks fired (every warp written, no uniform map, the
+    first chunk's maps equal to a direct extract, every sample evaluated,
+    the engine alive) and the K1/K2/K3 launch counts the path predicts.
+11. The code-tag accuracy chain through both CLIs' ``main`` on the card:
+    50 scenes (seed 0), the reader proxy backend, batches of 8; K1 = 50,
+    50 evaluated, original accuracy <= 0.02, warped-vs-original gain >=
+    0.78. Steps 10 and 11 write under ``build/chip_smoke/`` in the checkout.
 
-Steps 3-5 time each kernel at its main-path shapes (K2 and K3 with L2
-flushed before every call, as a prefill or a decode step finds its layer's
-tensors cold in HBM; their time with L2 warm is reported beside it as
-``warm_ms``) beside its plain version, the least time the card could take
+Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
+every call, as a prefill or a decode step finds its layer's tensors cold in
+HBM (the time with L2 warm is reported beside it as ``warm_ms``), beside
+its plain version, the least time the card could take
 for the same work (``kernels/roofline.py``: bytes over 3.35 TB/s or
 operations over the peak rate of their type, whichever is larger) and one
 PyTorch call computing the same function where there is one:
-``F.grid_sample`` for K1 and
+``F.grid_sample`` for K1 (timed with L2 warm too, ``library_warm_ms``) and
 ``F.scaled_dot_product_attention`` (fastest backend that takes a bool
 mask) for K2, each checked to agree with the plain version; none for K3.
 
@@ -145,20 +164,16 @@ def _bound_text(e: dict) -> str:
 
 
 class TimedBackend:
-    """Delegates to a backend and times its two passes (host clock around
-    work that ends in a device synchronize)."""
+    """Delegates to a backend and adds up the time of its two passes,
+    ``extract`` ("pass1") and ``answer_batch`` ("pass2"), in ``seconds``
+    (host clock around work that ends in a device synchronize)."""
 
     def __init__(self, backend):
         self.backend = backend
         self.seconds = {}
 
-    @property
-    def device(self):
-        return self.backend.device
-
-    @property
-    def image_size(self):
-        return self.backend.image_size
+    def __getattr__(self, name):
+        return getattr(self.backend, name)
 
     def _timed(self, name, fn, *args, **kwargs):
         import torch
@@ -167,7 +182,7 @@ class TimedBackend:
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
-        self.seconds[name] = time.perf_counter() - t0
+        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
         return out
 
     def extract(self, *args, **kwargs):
@@ -203,7 +218,68 @@ def phase_device():
     print(f"[1 device] {name} | count {torch.cuda.device_count()} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | TF32 off")
     print(smi)
+    # the port reads and writes its artifacts without an imaging library;
+    # whether one is installed, and how the port's PNG decoder compares with
+    # it, is reported from a child process, so that this one never imports it
+    from pathlib import Path
+
+    probe = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.imaging_probe()"],
+        capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    for line in probe.stdout.strip().splitlines():
+        print(f"[1 device] {line}")
     return name
+
+
+def imaging_probe():
+    """Prints which imaging libraries import and, where Pillow does, the time
+    of ``data/imageio.py``'s decoder against Pillow's on a Pillow-written
+    512 x 512 RGB PNG of smooth content (blurred noise, for which Pillow
+    picks the Paeth filter on most rows): the median of three reads each,
+    host clock."""
+    import importlib
+    import io
+    import zlib
+
+    found = []
+    for m in ("PIL", "cv2"):
+        try:
+            found.append(f"{m} {importlib.import_module(m).__version__}")
+        except Exception as e:
+            found.append(f"{m} not importable: {type(e).__name__}")
+    print("imaging libraries: " + " | ".join(found))
+    try:
+        from PIL import Image, ImageFilter
+    except ImportError:
+        return
+    import numpy as np
+
+    from attwarp_tpu_torch.data import imageio
+
+    rng = np.random.default_rng(0)
+    noise = Image.fromarray((rng.random((512, 512, 3)) * 255).astype(np.uint8))
+    a = np.asarray(noise.filter(ImageFilter.GaussianBlur(6)), np.float32)
+    px = ((a - a.min()) * (255 / (a.max() - a.min()))).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, format="PNG")
+    data = buf.getvalue()
+    raw = zlib.decompress(b"".join(p for t, p in imageio._chunks(data) if t == b"IDAT"))
+    filters = np.bincount(np.frombuffer(raw, np.uint8).reshape(512, -1)[:, 0], minlength=5)
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1], out
+
+    t_port, got = median_s(lambda: imageio.decode_png(data))
+    t_pil, ref = median_s(lambda: np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+    check(bool((got == ref).all()), "the PNG decoder disagrees with Pillow")
+    print(f"PNG decode, Pillow-written 512x512 RGB (rows by filter None/Sub/Up/Average/Paeth "
+          f"{'/'.join(map(str, filters))}): data/imageio.py {1e3 * t_port:.1f} ms, Pillow "
+          f"{1e3 * t_pil:.1f} ms (host clock, median of 3)")
 
 
 def phase_build():
@@ -217,6 +293,15 @@ def phase_build():
 
 
 def phase_k1(dev):
+    """K1 at the pipeline's shape (4, 512, 640, 3) and at the dataset
+    driver's (one 512 x 512 code-tag scene per launch), both to 500 x 500."""
+    out = {}
+    for name, (B, H, W) in (("pipeline", (4, 512, 640)), ("dataset_driver", (1, 512, 512))):
+        out[name] = _k1_case(dev, name, B, H, W)
+    return out
+
+
+def _k1_case(dev, name, B, H, W):
     import torch
 
     from attwarp_tpu_torch.kernels import roofline
@@ -226,10 +311,10 @@ def phase_k1(dev):
     from attwarp_tpu_torch.warp.warp import warp_grid_maps
 
     g = torch.Generator(device=dev).manual_seed(1)
-    img = torch.rand((4, 512, 640, 3), generator=g, device=dev) * 255.0
-    att = torch.rand((4, 24, 24), generator=g, device=dev)
-    masks = mota_mask(att, (512, 640)).to(torch.float32)
-    mx, my = warp_grid_maps(masks, (512, 640), 500, 500)
+    img = torch.rand((B, H, W, 3), generator=g, device=dev) * 255.0
+    att = torch.rand((B, 24, 24), generator=g, device=dev)
+    masks = mota_mask(att, (H, W)).to(torch.float32)
+    mx, my = warp_grid_maps(masks, (H, W), 500, 500)
     mx, my = mx.contiguous(), my.contiguous()
     got = warp_resample(img, mx, my)
     ref = remap_bilinear_separable(img, mx, my)
@@ -240,8 +325,8 @@ def phase_k1(dev):
     # BORDER_REPLICATE), align_corners so that -1 and 1 are pixel centres 0
     # and W-1; the copy and the grid are made outside the timing
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
-    gx = (2 * mx / (640 - 1) - 1)[:, None, :].expand(4, 500, 500)
-    gy = (2 * my / (512 - 1) - 1)[:, :, None].expand(4, 500, 500)
+    gx = (2 * mx / (W - 1) - 1)[:, None, :].expand(B, 500, 500)
+    gy = (2 * my / (H - 1) - 1)[:, :, None].expand(B, 500, 500)
     grid = torch.stack((gx, gy), dim=-1).contiguous()
 
     def library():
@@ -249,27 +334,41 @@ def phase_k1(dev):
                                                padding_mode="border", align_corners=True)
 
     lib_err = (library().permute(0, 2, 3, 1) - ref).abs().max().item()
+
+    def t_kernel():
+        return warp_resample(img, mx, my)
+
     t = alternate_ms({"plain": lambda: remap_bilinear_separable(img, mx, my),
-                      "kernel": lambda: warp_resample(img, mx, my),
-                      "library": library}, 50)
-    e = with_bound({"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
-                    "library_ms": t["library"], "library": "F.grid_sample",
-                    "library_max_abs_err": lib_err},
-                   roofline.k1_work(4, 512, 640, 3, 500, 500), roofline.F32_FLOPS)
-    print(f"[3 K1 warp_resample] (4,512,640,3)->(4,500,500,3) max|kernel-plain| "
+                      "kernel": t_kernel, "library": library}, 50, cold=True)
+    warm = alternate_ms({"kernel": t_kernel, "library": library}, 50)
+    e = with_bound({"max_abs_err": err, "ms": t["kernel"], "warm_ms": warm["kernel"],
+                    "plain_ms": t["plain"], "library_ms": t["library"],
+                    "library_warm_ms": warm["library"],
+                    "library": "F.grid_sample", "library_max_abs_err": lib_err},
+                   roofline.k1_work(B, H, W, 3, 500, 500), roofline.F32_FLOPS)
+    print(f"[3 K1 warp_resample] {name} ({B},{H},{W},3)->({B},500,500,3) max|kernel-plain| "
           f"{err:.6g} (tol {tol:.3g}), max|grid_sample-plain| {lib_err:.6g} | kernel "
-          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms" + _bound_text(e))
-    check(got.shape == (4, 500, 500, 3) and err <= tol, "K1 disagrees with its plain version")
+          f"{t['kernel']:.4f} ms (L2 warm {warm['kernel']:.4f}), plain {t['plain']:.4f} ms"
+          + _bound_text(e) + f" (L2 warm {warm['library']:.4f})")
+    check(got.shape == (B, 500, 500, 3) and err <= tol, "K1 disagrees with its plain version")
     check(lib_err <= tol, "the grid_sample yardstick computes another function")
     return e
 
 
-def _serve_windows(B):
-    """Per-slot [start, cur] windows of a serving pool at S=768: prompts
-    left-padded in the 640 and 704 buckets at different decode depths,
-    then a retired slot's [0, 0] and a free slot's [0, j]."""
-    rows = [((37 * b) % 64, (640, 704)[b % 2] + (11 * b) % 60) for b in range(B - 2)]
+def _serve_windows(B, buckets=(640, 704), depth=60):
+    """Per-slot [start, cur] windows of a serving pool: prompts left-padded
+    in ``buckets`` at decode depths below ``depth``, then a retired slot's
+    [0, 0] and a free slot's [0, j]. The defaults fit the S=768 pools of
+    step 8; the harness's engine in step 10 holds prompts of the 640 bucket
+    with 16 answer tokens and one tick of 8 in S=704."""
+    rows = [((37 * b) % 64, buckets[b % len(buckets)] + (11 * b) % depth)
+            for b in range(B - 2)]
     return rows + [(0, 0), (0, 17)]
+
+
+# the dataset driver's extraction decode (step 10): 8 prompts left-padded
+# to T=640, every row at the last of its 20 decode steps, in S=704
+_EXTRACT_WINDOWS = [((37 * b) % 64, 640 + 19) for b in range(8)]
 
 
 def _k3_case(dev, L, B, S, H, kvH, seed, windows=None):
@@ -313,12 +412,17 @@ def phase_k3(dev):
     # decode caches of S=704 (640-token prompt + 20, to 64s): LLaVA-1.5-7B
     # (32 layers, 32/32 heads) and Qwen2-VL-7B (28 layers, 28 over 4 kv
     # heads, n_rep 7); their serving slot pools (16 and 8 slots of
-    # max_seq 768, per-slot windows); plus a small GQA case with n_rep 8
+    # max_seq 768, per-slot windows); LLaVA-1.5-7B in the dataset driver's
+    # extraction (B=8) and in the harness's 8-slot engine (S=704); plus a
+    # small GQA case with n_rep 8
     for name, (L, B, S, H, kvH), seed, timed, windows in (
             ("llava7b", (32, 4, 704, 32, 32), 2, True, None),
             ("qwen7b", (28, 4, 704, 28, 4), 9, True, None),
             ("llava7b_serve", (32, 16, 768, 32, 32), 12, True, _serve_windows(16)),
             ("qwen7b_serve", (28, 8, 768, 28, 4), 13, True, _serve_windows(8)),
+            ("llava7b_dataset", (32, 8, 704, 32, 32), 14, True, _EXTRACT_WINDOWS),
+            ("llava7b_dataset_serve", (32, 8, 704, 32, 32), 15, True,
+             _serve_windows(8, buckets=(640,), depth=24)),
             ("gqa", (2, 2, 192, 32, 4), 3, False, None)):
         q, k_q, k_s, v_q, v_s, mask = _k3_case(dev, L, B, S, H, kvH, seed, windows)
         layer = min(7, L - 1)
@@ -433,11 +537,13 @@ def phase_k2(dev):
     sm = 1.0 / 128 ** 0.5
     out = {}
     # the pipeline's B=4 prefill at T=640, the serving engines' admission
-    # groups (at most 8) at T=704, and a ragged T
+    # groups (at most 8) at T=704, the dataset driver's B=8 extraction
+    # prefill at T=640, and a ragged T
     for name, (B, T, H, kvH), timed in (("llava7b", (4, 640, 32, 32), True),
                                         ("qwen7b", (4, 640, 28, 4), True),
                                         ("llava7b_serve", (8, 704, 32, 32), True),
                                         ("qwen7b_serve", (8, 704, 28, 4), True),
+                                        ("llava7b_dataset", (8, 640, 32, 32), True),
                                         ("ragged", (3, 200, 28, 4), False)):
         q, k, v, mask = _k2_case(dev, B, T, H, kvH, seed=8)
         got = flash_prefill(q, k, v, mask, sm)
@@ -509,6 +615,7 @@ def _drive(tag, backend, n_side, counters, want):
     print(f"[{tag}] warm-up run {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
+    backend.seconds.clear()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -920,6 +1027,196 @@ def _serve_parity(backend):
     check(same == len(reqs), "chunked engine tokens differ from ServeEngine")
 
 
+def _scratch(name):
+    """A fresh directory under the checkout's (gitignored) build/."""
+    import shutil
+    from pathlib import Path
+
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _result_json(out_dir):
+    import glob
+    import os
+
+    paths = [p for p in glob.glob(os.path.join(out_dir, "textvqa_accuracy_*.json"))]
+    check(len(paths) == 1, f"one final result JSON in {out_dir}")
+    with open(paths[0]) as f:
+        return json.load(f)
+
+
+def _check_tree(out, n, n_side):
+    """The driver's nine directories and each sample's files, as JAX names
+    them; no sample took a fallback (every warp written, no uniform map).
+    Returns the metadata, in dataset order."""
+    import os
+
+    import numpy as np
+
+    from attwarp_tpu_torch.cli.process_dataset import ARTIFACT_DIRS
+    from attwarp_tpu_torch.data.imageio import read_rgb
+
+    check(sorted(os.listdir(out)) == sorted(ARTIFACT_DIRS), "the nine artifact directories")
+    metas = []
+    for name in os.listdir(out / "metadata"):
+        with open(out / "metadata" / name) as f:
+            metas.append(json.load(f))
+    metas.sort(key=lambda m: m["original_index"])
+    check(len(metas) == n, f"{n} metadata files")
+    names = {"original_image": ("original_images", "_original.png"),
+             "masked_image": ("masked_images", "_masked.png"),
+             "attention_map_image_from_api": ("attention_maps_images", "_attn_map_img.png"),
+             "raw_attention_map_npy": ("raw_attention_maps", "_raw_attn.npy"),
+             "mota_mask_visualization": ("attention_maps", "_mota_mask_vis.png"),
+             "mota_mask_npy": ("attention_maps", "_mota_mask.npy"),
+             "warped_image_identity": ("warped_images", "_identity.png")}
+    uniform = 0
+    for m in metas:
+        sid = m["sample_id"]
+        for key, (d, suffix) in names.items():
+            path = m["saved_paths"].get(key)
+            check(path == str(out / d / f"{sid}{suffix}") and os.path.exists(path),
+                  f"{sid}: {key}")
+        raw = np.load(m["saved_paths"]["raw_attention_map_npy"])
+        check(raw.shape == (1, 1, n_side, n_side) and bool(np.isfinite(raw).all()),
+              f"{sid}: raw map")
+        uniform += bool(np.allclose(raw, 1.0 / n_side**2, rtol=0, atol=1e-9))
+        check(read_rgb(m["saved_paths"]["warped_image_identity"]).shape == (500, 500, 3),
+              f"{sid}: warped shape")
+    check(uniform == 0, f"{uniform} samples got the uniform fallback map")
+    return metas
+
+
+def phase_llava_dataset(backend):
+    """LLaVA-1.5-7B ``+kv8+flash`` over 16 code-tag scenes (512 px, seed 0):
+    the dataset driver (batches of 8, 20 new tokens), then the harness on
+    the warped and the original images through the serving engine (8
+    slots, 16 new tokens). Checks the artifacts, that no fallback fired,
+    and K1 = 16, K2 = 32 x (2 extraction prefills + the engine's admission
+    groups), K3 = 2 x 20 x 31 + 32 x the engine's decode steps."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.cli.process_dataset import process_dataset
+    from attwarp_tpu_torch.data.imageio import read_rgb
+    from attwarp_tpu_torch.eval.harness import EngineAnswerBackend, evaluate_textvqa_accuracy
+    from attwarp_tpu_torch.extract.resize import resize_images_batch
+    from attwarp_tpu_torch.testing.reader import write_textvqa_dataset
+
+    root = _scratch("llava_dataset")
+    json_path, image_dir = write_textvqa_dataset(str(root / "data"), n=16, seed=0)
+    backend.kv_quant = backend.use_flash = True
+    timed = TimedBackend(backend)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = process_dataset(json_path, image_dir, str(root / "out"), timed,
+                            batch_size=8, max_new_tokens=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    extract_s = timed.seconds["pass1"]
+    driver = {name: fn.launches for name, fn in counters.items()}
+    answerer = EngineAnswerBackend(backend, slots=8, max_new_tokens=16)
+    t0 = time.perf_counter()
+    res = evaluate_textvqa_accuracy(str(root / "out" / "metadata"), str(root / "eval"),
+                                    answerer, model_name="llava-1.5-7b random bf16 +kv8+flash",
+                                    max_new_tokens=16, score_original=True, batch_size=16)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    eng = answerer.engine
+    L = backend.model.cfg.text.num_hidden_layers
+    alive = eng is not None and not answerer._engine_dead
+    want = {"warp_resample": 16,
+            "flash_prefill": L * (2 + (eng.prefill_groups if alive else 0)),
+            "decode_attn_int8": 2 * 20 * (L - 1) + L * (eng.decode_steps if alive else 0)}
+    print(f"[10 llava dataset] driver: {stats['processed']} processed, {stats['failed']} "
+          f"failed, wall {wall:.3f} s ({16 / wall:.3f} samples/s; extraction {extract_s:.3f} s"
+          f" = {extract_s / wall:.1%}) | launches K1 {driver['warp_resample']}, K2 "
+          f"{driver['flash_prefill']}, K3 {driver['decode_attn_int8']}")
+    print(f"[10 llava dataset] harness: {res['total_samples_evaluated']} evaluated (warped and "
+          f"original), wall {eval_wall:.3f} s | engine alive {alive}, "
+          f"{eng.slots if alive else 0} slots, {eng.prefill_groups if alive else 0} prefill "
+          f"groups, {eng.decode_steps if alive else 0} decode steps | accuracy warped "
+          f"{res['overall_warped_accuracy']:.4f}, original "
+          f"{res.get('overall_original_accuracy', float('nan')):.4f} (random weights) | peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"[10 llava dataset] launches: " + ", ".join(
+        f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+    check(stats == {"processed": 16, "failed": 0}, "16 processed, 0 failed")
+    metas = _check_tree(root / "out", 16, backend.num_patches_side)
+    check(res["total_samples_evaluated"] == 16 and len(res["detailed_results"]) == 16
+          and all("original_answer" in r for r in res["detailed_results"]),
+          "the harness evaluated every sample, warped and original")
+    check(alive, "the serving engine was retired")
+    for name in counters:
+        check(launches[name] == want[name], f"llava dataset: {name} launch count")
+
+    # the first chunk's maps against a direct extract of the same batch
+    first = metas[:8]
+    pix = resize_images_batch([read_rgb(m["saved_paths"]["original_image"]) for m in first],
+                              backend.image_size, backend.device)
+    maps, _ = backend.extract(pix, [m["question"] for m in first], max_new_tokens=20)
+    raw = np.stack([np.load(m["saved_paths"]["raw_attention_map_npy"])[0, 0] for m in first])
+    d = float(np.abs(maps.cpu().numpy() - raw).max())
+    print(f"[10 llava dataset] first chunk's maps vs a direct extract: max|d| {d:.3g} "
+          f"(tol 1e-6)")
+    check(d <= 1e-6, "the driver's maps differ from a direct extract")
+    return launches
+
+
+def phase_codetag():
+    """The code-tag accuracy chain through both CLIs' ``main`` on the card:
+    50 scenes (seed 0), the reader backend, batches of 8; checks K1 = 50,
+    50 evaluated, original accuracy <= 0.02 and a gain >= 0.78."""
+    import torch
+
+    from attwarp_tpu_torch.cli import evaluate, process_dataset
+    from attwarp_tpu_torch.testing.reader import write_textvqa_dataset
+
+    root = _scratch("codetag")
+    t0 = time.perf_counter()
+    json_path, image_dir = write_textvqa_dataset(str(root / "data"), n=50, seed=0)
+    write_s = time.perf_counter() - t0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = process_dataset.main(["--textvqa-json", json_path, "--image-dir", image_dir,
+                               "--output-dir", str(root / "out"), "--backend", "reader",
+                               "--device", "cuda", "--batch-size", "8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_eval = evaluate.main(["--metadata-dir", str(root / "out" / "metadata"),
+                             "--output-dir", str(root / "eval"), "--model", "reader",
+                             "--device", "cuda", "--score-original", "--batch-size", "8"])
+    eval_wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    res = _result_json(root / "eval")
+    print(f"[11 codetag] 50 scenes written in {write_s:.3f} s | driver wall {wall:.3f} s "
+          f"({50 / wall:.3f} samples/s) | harness wall {eval_wall:.3f} s | accuracy warped "
+          f"{res['overall_warped_accuracy']:.4f}, original "
+          f"{res['overall_original_accuracy']:.4f}, gain {res['accuracy_gain']:+.4f} "
+          f"(bars: original <= 0.02, gain >= 0.78) | launches K1 {launches['warp_resample']} "
+          f"(expected 50), K2 {launches['flash_prefill']}, K3 {launches['decode_attn_int8']}")
+    check(rc == 0 and rc_eval == 0, "a CLI exited non-zero")
+    _check_tree(root / "out", 50, 32)
+    check(launches == {"warp_resample": 50, "flash_prefill": 0, "decode_attn_int8": 0},
+          "codetag launch counts")
+    check(res["total_samples_evaluated"] == 50, "50 evaluated")
+    check(res["overall_original_accuracy"] <= 0.02, "original accuracy above 0.02")
+    check(res["accuracy_gain"] >= 0.78, "accuracy gain below 0.78")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -950,6 +1247,8 @@ def main() -> int:
     paths["llava"], backend = _phase("6 llava", phase_slice, dev)
     paths["llava_serve"], paths["llava_chunked"] = _phase(
         "8 llava serve", phase_llava_serve, backend)
+    paths["llava_dataset"] = _phase("10 llava dataset", phase_llava_dataset, backend)
+    paths["codetag"] = _phase("11 codetag", phase_codetag)
     del backend
     gc.collect()                 # free the LLaVA weights before Qwen's
     torch.cuda.empty_cache()
@@ -969,17 +1268,20 @@ def main() -> int:
         {"name": "warp_resample", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/warp_resample.cu",
          "replaces": "attwarp_tpu/ops/pallas_warp.py:87",
-         **launches("warp_resample"), **k1},
+         **launches("warp_resample"), **k1["pipeline"],
+         "dataset_driver": k1["dataset_driver"]},
         {"name": "flash_prefill", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "attwarp_tpu/models/llama.py:218",
          **launches("flash_prefill"), **k2["qwen7b"],
-         **{k: k2[k] for k in ("llava7b", "llava7b_serve", "qwen7b_serve")}},
+         **{k: k2[k] for k in ("llava7b", "llava7b_serve", "qwen7b_serve",
+                               "llava7b_dataset")}},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/decode_attn_int8.cu",
          "replaces": "attwarp_tpu/ops/pallas_decode_attn.py:284",
          **launches("decode_attn_int8"), **k3["llava7b"],
-         **{k: k3[k] for k in ("qwen7b", "llava7b_serve", "qwen7b_serve")}},
+         **{k: k3[k] for k in ("qwen7b", "llava7b_serve", "qwen7b_serve",
+                               "llava7b_dataset", "llava7b_dataset_serve")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

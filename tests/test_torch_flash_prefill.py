@@ -157,7 +157,8 @@ K2_PADS = lambda B: [(37 * b) % 61 for b in range(B)]   # chip_smoke._k2_case
 
 
 @pytest.mark.parametrize("B,T,H,kvH", [(4, 640, 32, 32), (4, 640, 28, 4),
-                                       (8, 704, 32, 32), (8, 704, 28, 4)])
+                                       (8, 704, 32, 32), (8, 704, 28, 4),
+                                       (8, 640, 32, 32)])   # the dataset driver's
 def test_roofline_k2_counts(B, T, H, kvH):
     from attwarp_tpu_torch.kernels import roofline
 
@@ -198,6 +199,30 @@ def test_roofline_k3_counts(B, S, H, kvH, serve):
     if not serve and H == 32:   # windows [0, 660], [37, 663], [10, 666], [47, 669]
         assert n_valid == 2568 and nbytes == 21_762_816
     assert roofline.bound(nbytes, flops)["bound_by"] == "bytes"
+
+
+# chip_smoke's K3 shapes of the dataset driver (LLaVA-1.5-7B, step 10):
+# B=8 S=704 with the extraction's windows (every row at its 20th decode
+# step after a T=640 prompt) and with the harness engine's slot windows
+# (640 bucket, at most 23 tokens deep)
+_DATASET_K3_WINDOWS = {
+    "extract": [((37 * b) % 64, 640 + 19) for b in range(8)],
+    "engine": [((37 * b) % 64, 640 + (11 * b) % 24) for b in range(6)] + [(0, 0), (0, 17)],
+}
+
+
+@pytest.mark.parametrize("kind", ["extract", "engine"])
+def test_roofline_k3_dataset_counts(kind):
+    from attwarp_tpu_torch.kernels import roofline
+
+    windows = _DATASET_K3_WINDOWS[kind]
+    assert all(cur < 704 for _, cur in windows)
+    n_valid = sum(cur - start + 1 for start, cur in windows)
+    nbytes, flops = roofline.k3_work(8, 704, 32, 32, n_valid)
+    assert nbytes == n_valid * 32 * (128 + 128 + 4 + 4) + 2 * 8 * 32 * 128 * 2 + 8 * 704
+    assert flops == 4 * 128 * 32 * n_valid
+    assert roofline.bound(nbytes, flops)["bound_by"] == "bytes"
+
 
 
 def test_roofline_k1_counts():

@@ -33,6 +33,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,out_hw,att_hw", [
     ((4, 512, 640, 3), (500, 500), (512, 640)),   # the pipeline's warp
+    ((1, 512, 512, 3), (500, 500), (512, 512)),   # the dataset driver's, per sample
     ((3, 97, 131, 1), (64, 200), (24, 24)),       # ragged, one channel, low-res maps
 ])
 def test_k1_cuda_matches_plain(cuda, shape, out_hw, att_hw):

@@ -395,7 +395,8 @@ def test_serve_cli_end_to_end(llava, tmp_path, chunked):
     with an image request and an ids-only request in, answers out; the
     image request's tokens are those of the engine on the backend's own
     ``_preprocess`` pixels."""
-    from attwarp_tpu_torch.cli.serve import main, read_image
+    from attwarp_tpu_torch.cli.serve import main
+    from attwarp_tpu_torch.data.imageio import read_rgb
     from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
 
     tm = llava[1]
@@ -409,7 +410,7 @@ def test_serve_cli_end_to_end(llava, tmp_path, chunked):
                  "--chunked-prefill", str(chunked)]) == 0
     rows = [json.loads(line) for line in open(out)]
     assert [r["answer"] for r in rows] == [None, None]    # no tokenizer saved
-    pixels = be._preprocess(read_image(str(img)))
+    pixels = be._preprocess(read_rgb(str(img)))
     assert pixels.shape == (28, 28, 3) and pixels.dtype == np.float32
     eng = ServeEngine(tm, slots=2, max_seq=768, steps_per_tick=2, kv_quant=True)
     lines = [json.loads(line) for line in open(reqs)]
@@ -436,7 +437,8 @@ def test_checkpoint_round_trip(llava, qwen, tmp_path):
 
 def test_make_backend_grammar(llava, qwen, tmp_path):
     """``+kv8`` and ``+flash`` compose in any order; the specs the port
-    cannot load yet raise and name the ROADMAP item that brings them."""
+    cannot load yet raise and name the ROADMAP item that brings them; the
+    reader proxy loads and has no ``+kv8`` path."""
     from attwarp_tpu_torch.cli.process_dataset import make_backend, parse_layer_spec
     from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
     from attwarp_tpu_torch.extract.qwen2vl_backend import Qwen2VLBackend
@@ -454,9 +456,11 @@ def test_make_backend_grammar(llava, qwen, tmp_path):
                        (f"llava-ckpt:{tmp_path}/l+kv8+lm8", "item 5"),
                        ("llava:llava-hf/llava-1.5-7b-hf", "item 4"),
                        ("qwen2vl:Qwen/Qwen2-VL-7B-Instruct", "item 8"),
-                       ("mini", "item 3"), ("reader", "item 6"), ("nonsense", "unknown")):
+                       ("mini", "item 3"), ("reader+kv8", "no '\\+kv8' path"),
+                       ("nonsense", "unknown")):
         with pytest.raises(ValueError, match=item):
             make_backend(spec, 0, "cpu")
+    assert type(make_backend("reader", 20, "cpu")).__name__ == "ReaderBackend"
 
 
 def test_port_serving_imports_no_jax():
