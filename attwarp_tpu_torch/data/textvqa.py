@@ -4,9 +4,9 @@
 Parity with ``main.py:82-181`` / ``main_batched.py:68-101``: loads the
 ``TextVQA_0.5.1_val.json`` layout (``{dataset_type, dataset_name,
 dataset_version, data: [...]}``) and reads ``{image_id}.jpg`` under the
-image directory through ``data/imageio.py`` (by content: PNG without
-Pillow, JPEG through it). A missing or unreadable image gives
-``loaded_image = None``; a JPEG on a machine without Pillow raises. JAX's
+image directory through ``data/imageio.py`` (Pillow). A missing or
+unreadable image gives ``loaded_image = None``; on a machine without
+Pillow reading raises. JAX's
 optional flickr download (``download_images``), which no driver turns on,
 is not ported.
 """

@@ -59,16 +59,18 @@ class Qwen2VLBackend:
 
     # ── checkpoints ────────────────────────────────────────────────────
     def save(self, path) -> None:
-        """Write ``params.pt`` and ``config.json`` into directory ``path``."""
-        save_checkpoint(path, self.model.params, self.model.cfg)
+        """Write ``params.pt``, ``config.json`` and the tokenizer's files
+        (where the backend has one) into directory ``path``."""
+        save_checkpoint(path, self.model.params, self.model.cfg, self.tokenizer)
 
     @classmethod
     def load(cls, path, device, extract_layer: int = 20, image_size: int = 448,
              tokenizer=None) -> "Qwen2VLBackend":
         """A backend from a directory written by ``save``, its weights on
-        ``device`` (pass a tokenizer for the text-level calls)."""
-        cfg, params = load_checkpoint(path, device, config_from_dict)
-        return cls(Qwen2VLModel(cfg, params), tokenizer=tokenizer,
+        ``device``, with the tokenizer saved beside them unless one is
+        passed (None where the directory holds none)."""
+        cfg, params, saved = load_checkpoint(path, device, config_from_dict)
+        return cls(Qwen2VLModel(cfg, params), tokenizer=saved if tokenizer is None else tokenizer,
                    extract_layer=extract_layer, image_size=image_size)
 
     @property

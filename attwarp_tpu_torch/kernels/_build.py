@@ -31,8 +31,9 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 # C entry points: name -> argtypes (every function returns cudaGetLastError)
 _SIGNATURES = {
-    # img, map_x, map_y, out, B, H, W, C, H_out, W_out, stream
-    "attwarp_warp_resample": [_VOID] * 4 + [_INT] * 6 + [_VOID],
+    # img, map_x, map_y, out, B, H, W, C, H_out, W_out, rows, tile, slots,
+    # cap, threads, smem, stream
+    "attwarp_warp_resample": [_VOID] * 4 + [_INT] * 12 + [_VOID],
     # q, k_q, k_s, v_q, v_s, mask, out, scratch, L, B, S, H, kvH, hd, layer,
     # n_split, chunk, sm_scale, stream
     "attwarp_decode_attn_int8": [_VOID] * 8 + [_INT] * 9

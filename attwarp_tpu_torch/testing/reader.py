@@ -3,10 +3,8 @@
 ``tests/test_torch_dataset.py`` pins the scenes bit-equal and the maps and
 answers to the original's).
 
-Two changes: resizes and pooling go through the port's
-``extract/resize.py`` and ``numerics/pooling.py``, and
-``write_textvqa_dataset`` writes PNG content under the layout's
-``{image_id}.jpg`` names (see there).
+One change: resizes and pooling go through the port's
+``extract/resize.py`` and ``numerics/pooling.py``.
 
 Closes the accuracy-gain evidence chain (BASELINE target 3) as far as a
 zero-egress environment allows: the paper's claim is that warping more
@@ -40,7 +38,6 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from attwarp_tpu_torch.data.imageio import write_png
 from attwarp_tpu_torch.extract.resize import resize_for_backend
 
 BITS = 8                    # 8x8 code -> 64 bits -> 16 hex chars
@@ -457,14 +454,11 @@ def write_textvqa_dataset(
     of code-tag scenes. ``geometry``: "center" = the original single
     centered-margin tag; "hard" = off-center varying-scale tag among
     high-contrast distractors (``make_scene_hard``). Returns
-    (json_path, image_dir).
-
-    The images are PNG content under the ``.jpg`` names (JAX writes JPEG at
-    quality 95): lossless, and needing no JPEG encoder. Readers that go by
-    content, as this port's ``data/imageio.py`` and Pillow (so also the
-    JAX dataset class) do, read them as they are."""
+    (json_path, image_dir)."""
     import json
     import os
+
+    from PIL import Image
 
     scene = {"center": make_scene, "hard": make_scene_hard}[geometry]
     rng = np.random.default_rng(seed)
@@ -475,7 +469,11 @@ def write_textvqa_dataset(
         img, answer, _box = scene(rng, src=src)
         cell = _box[2] // CELLS
         image_id = f"codetag_{i:05d}"
-        write_png(os.path.join(image_dir, f"{image_id}.jpg"), img)
+        # JPEG like the real TextVQA images (quality high enough to keep
+        # the tag cells; the reader still can't resolve them unwarped)
+        Image.fromarray(img).save(
+            os.path.join(image_dir, f"{image_id}.jpg"), quality=95
+        )
         data.append({
             "question": question,
             "image_id": image_id,

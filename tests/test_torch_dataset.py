@@ -14,11 +14,11 @@ its plain version; the kernel is held against it on the card
 import functools
 import glob
 import inspect
-import io
 import json
 import os
 import struct
 import sys
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -86,10 +86,15 @@ def test_jet_table_matches_cv2():
     np.testing.assert_array_equal(jet_lut_rgb(), j_jet())
 
 
-# ── the PNG codec ───────────────────────────────────────────────────────
+# ── image files through Pillow ──────────────────────────────────────────
 
 SHAPES = [(9, 13), (9, 13, 2), (9, 13, 3), (9, 13, 4)]
-PIL_MODES = {2: "L", 3: "LA", 4: "RGBA"}
+COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}     # PNG color type by channel count
+
+
+def _chunk(ctype: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + ctype + payload
+            + struct.pack(">I", zlib.crc32(ctype + payload)))
 
 
 def _filtered_png(px: np.ndarray, filters) -> bytes:
@@ -119,38 +124,52 @@ def _filtered_png(px: np.ndarray, filters) -> bytes:
             pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
         rows.append(np.concatenate([[f], (cur - pred) % 256]).astype(np.uint8))
         prev = cur
-    header = struct.pack(">IIBBBBB", w, h, 8, imageio._COLOR_TYPE[c], 0, 0, 0)
-    import zlib
+    header = struct.pack(">IIBBBBB", w, h, 8, COLOR_TYPE[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(np.stack(rows).tobytes()))
+            + _chunk(b"IEND", b""))
 
-    return (imageio.PNG_SIGNATURE + imageio._chunk(b"IHDR", header)
-            + imageio._chunk(b"IDAT", zlib.compress(np.stack(rows).tobytes()))
-            + imageio._chunk(b"IEND", b""))
+
+def _rgb(px: np.ndarray) -> np.ndarray:
+    """What ``convert("RGB")`` makes of (H, W) or (H, W, 1-4) pixels: gray
+    repeated over three channels, alpha dropped."""
+    px = px if px.ndim == 3 else px[..., None]
+    return np.repeat(px[..., :1], 3, axis=2) if px.shape[2] < 3 else px[..., :3]
+
+
+def _read_matches_jax(path, want=None):
+    got = imageio.read_rgb(path)
+    assert got.dtype == np.uint8 and got.shape[2] == 3
+    np.testing.assert_array_equal(got, jio.load_image_rgb(path))
+    if want is not None:
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"c{s[2] if len(s) == 3 else 1}")
 def test_png_roundtrip_and_pil_reads_it(shape, rng, tmp_path):
     px = (rng.random(shape) * 256).astype(np.uint8)
-    path = str(tmp_path / "x.jpg")           # the name does not matter
+    path = str(tmp_path / "x.jpg")           # written as PNG whatever the name
     imageio.write_png(path, px)
-    np.testing.assert_array_equal(imageio.decode_png(open(path, "rb").read()), px)
+    assert open(path, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
     np.testing.assert_array_equal(_pil_png(path), px)
-    with Image.open(path) as im:
-        np.testing.assert_array_equal(imageio.read_rgb(path), np.asarray(im.convert("RGB")))
+    _read_matches_jax(path, _rgb(px))
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"c{s[2] if len(s) == 3 else 1}")
-def test_png_decodes_every_row_filter(shape, rng):
+def test_png_decodes_every_row_filter(shape, rng, tmp_path):
     px = (rng.random(shape) * 256).astype(np.uint8)
-    data = _filtered_png(px, [0, 1, 2, 3, 4, 4, 3, 1])
-    np.testing.assert_array_equal(imageio.decode_png(data), px)
-    with Image.open(io.BytesIO(data)) as im:        # the test encoder is right
+    path = tmp_path / "filtered.png"
+    path.write_bytes(_filtered_png(px, [0, 1, 2, 3, 4, 4, 3, 1]))
+    with Image.open(path) as im:                     # the test encoder is right
         np.testing.assert_array_equal(np.asarray(im), px)
+    _read_matches_jax(str(path), _rgb(px))
 
 
 @pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
 def test_png_reads_pil_written_files(mode, rng, tmp_path):
     """Pillow picks each row's filter itself; smooth content makes it use
-    the predicting ones."""
+    the predicting ones. The port's ``write_png`` writes the same bytes as
+    the JAX driver's ``Image.fromarray(...).save``."""
     n = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}[mode]
     yy, xx = np.mgrid[0:31, 0:37]
     smooth = (yy * 3 + xx * 5)[..., None] + 40 * np.arange(n)
@@ -158,9 +177,9 @@ def test_png_reads_pil_written_files(mode, rng, tmp_path):
     px = px[..., 0] if n == 1 else px
     path = str(tmp_path / "pil.png")
     Image.fromarray(px, mode).save(path)
-    np.testing.assert_array_equal(imageio.decode_png(open(path, "rb").read()), px)
-    with Image.open(path) as im:
-        np.testing.assert_array_equal(imageio.read_rgb(path), np.asarray(im.convert("RGB")))
+    _read_matches_jax(path, _rgb(px))
+    imageio.write_png(str(tmp_path / "port.png"), px)
+    assert open(tmp_path / "port.png", "rb").read() == open(path, "rb").read()
 
 
 def test_jpeg_goes_through_pillow_and_raises_without_it(rng, tmp_path, monkeypatch):
@@ -168,12 +187,15 @@ def test_jpeg_goes_through_pillow_and_raises_without_it(rng, tmp_path, monkeypat
     path = str(tmp_path / "scene.jpg")
     Image.fromarray(px).save(path, quality=95)
     with Image.open(path) as im:
-        np.testing.assert_array_equal(imageio.read_rgb(path), np.asarray(im.convert("RGB")))
+        _read_matches_jax(path, np.asarray(im.convert("RGB")))
     with open(tmp_path / "d.json", "w") as f:
         json.dump({"data": [{"image_id": "scene", "question": "q"}]}, f)
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(imageio.MissingPillowError, match=r"scene\.jpg.*Pillow"):
         imageio.read_rgb(path)
+    with pytest.raises(imageio.MissingPillowError, match=r"out\.png.*Pillow"):
+        imageio.write_png(str(tmp_path / "out.png"), px)
+    assert not os.path.exists(tmp_path / "out.png")
     with pytest.raises(imageio.MissingPillowError):     # not skipped as unreadable
         TextVQADataset(str(tmp_path / "d.json"), str(tmp_path))[0]
 
@@ -231,16 +253,15 @@ def test_reader_feature_extractor_matches():
 
 
 def test_textvqa_writer_and_dataset_match_jax(tmp_path):
-    """The port writes the same JSON as JAX and lossless PNG content under
-    the .jpg names; both dataset classes read the same samples from it."""
+    """The port writes the same JSON and the same JPEG files (quality 95)
+    as JAX; both dataset classes read the same samples from them."""
     jt, dt = treader.write_textvqa_dataset(str(tmp_path / "t"), n=3, seed=1, src=256)
-    jj, _ = jreader.write_textvqa_dataset(str(tmp_path / "j"), n=3, seed=1, src=256)
+    jj, dj = jreader.write_textvqa_dataset(str(tmp_path / "j"), n=3, seed=1, src=256)
     assert json.load(open(jt)) == json.load(open(jj))
-    rng = np.random.default_rng(1)
-    for i in range(3):
-        img, _, _ = jreader.make_scene(rng, src=256)
-        raw = open(os.path.join(dt, f"codetag_{i:05d}.jpg"), "rb").read()
-        np.testing.assert_array_equal(imageio.decode_png(raw), img)
+    assert sorted(os.listdir(dt)) == sorted(os.listdir(dj))
+    for name in os.listdir(dj):
+        raw = open(os.path.join(dt, name), "rb").read()
+        assert raw[:2] == b"\xff\xd8" and raw == open(os.path.join(dj, name), "rb").read()
     data = json.load(open(jt))
     data["data"].append({"image_id": "missing", "question": "q"})
     with open(jt, "w") as f:

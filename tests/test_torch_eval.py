@@ -223,20 +223,68 @@ def test_evaluate_cli_main(metadata, tmp_path, capsys, models):  # noqa: F811
         ev.build_parser().parse_args(args)
     with pytest.raises(SystemExit, match="no serving path"):
         ev.main(args + ["--model", "reader", "--device", "cpu", "--serve-slots", "2"])
-    LlavaBackend(models[1]).save(tmp_path / "ckpt")      # a checkpoint has no tokenizer
+    # a checkpoint carries its tokenizer, so the CLI answers with it
+    LlavaBackend(models[1], tokenizer=DryRunTokenizer()).save(tmp_path / "ckpt")
+    assert ev.main(args[:3] + [str(tmp_path / "eval_ckpt"), "--model",
+                               f"llava-ckpt:{tmp_path / 'ckpt'}+kv8", "--layer-index", "1",
+                               "--device", "cpu", "--limit", "2", "--max-new-tokens", "2"]) == 0
+    assert "(2 samples)" in capsys.readouterr().out
+    LlavaBackend(models[1]).save(tmp_path / "bare")      # saved without a tokenizer
     with pytest.raises(SystemExit, match="no tokenizer"):
-        ev.main(args + ["--model", f"llava-ckpt:{tmp_path / 'ckpt'}", "--device", "cpu"])
+        ev.main(args + ["--model", f"llava-ckpt:{tmp_path / 'bare'}", "--device", "cpu"])
     with pytest.raises(SystemExit, match="no tokenizer"):
         pd.main(["--jsonl", str(tmp_path / "none.jsonl"), "--output-dir", str(tmp_path / "o"),
-                 "--backend", f"llava-ckpt:{tmp_path / 'ckpt'}", "--device", "cpu"])
+                 "--backend", f"llava-ckpt:{tmp_path / 'bare'}", "--device", "cpu"])
 
 
-def test_chain_needs_no_pillow_opencv_or_jax(tmp_path):
-    """Write a code-tag dataset, run both CLIs on it on the CPU, in a process
-    where Pillow, OpenCV and JAX cannot be imported."""
+def _answers(out_dir):
+    res = json.load(open(glob.glob(os.path.join(out_dir, "textvqa_accuracy_*[0-9].json"))[0]))
+    return res, [{k: r[k] for k in ("question_id", "predicted_answer", "original_answer",
+                                    "accuracy", "original_accuracy") if k in r}
+                 for r in res["detailed_results"]]
+
+
+def test_checkpoint_clis_match_jax(models, tmp_path, capsys):  # noqa: F811
+    """Both CLIs on a ``llava-ckpt:...+kv8`` directory: the port's, written
+    by ``LlavaBackend.save`` with the dry-run tokenizer, against JAX's on a
+    JAX ``LlavaBackend.save`` of the same weights and tokenizer. The
+    artifacts of the driver and the harness's answers and scores equal."""
+    from attwarp_tpu.cli import evaluate as j_ev
+    from attwarp_tpu.cli import process_dataset as j_pd
+    from test_torch_dataset import _compare_outputs
+
+    jm, tm = models
+    JLlavaBackend(jm, tokenizer=build_dry_run_tokenizer()).save(str(tmp_path / "jckpt"))
+    LlavaBackend(tm, tokenizer=DryRunTokenizer()).save(tmp_path / "tckpt")
+    json_path, image_dir = treader.write_textvqa_dataset(str(tmp_path / "data"), n=3, seed=2,
+                                                         src=192)
+    common = ["--textvqa-json", json_path, "--image-dir", image_dir, "--layer-index", "1",
+              "--batch-size", "2", "--max-new-tokens", "3", "--width", "64", "--height", "48"]
+    ev_args = ["--layer-index", "1", "--max-new-tokens", "3", "--score-original",
+               "--batch-size", "2"]
+    for side, main_pd, main_ev, extra in (("j", j_pd.main, j_ev.main, []),
+                                          ("t", pd.main, ev.main, ["--device", "cpu"])):
+        spec = f"llava-ckpt:{tmp_path / (side + 'ckpt')}+kv8"
+        assert main_pd(common + ["--output-dir", str(tmp_path / side / "out"),
+                                 "--backend", spec] + extra) == 0
+        jax.effects_barrier()
+        assert main_ev(["--metadata-dir", str(tmp_path / side / "out" / "metadata"),
+                        "--output-dir", str(tmp_path / side / "eval"), "--model", spec]
+                       + ev_args + extra) == 0
+    _compare_outputs(str(tmp_path / "t" / "out"), str(tmp_path / "j" / "out"))
+    (res_t, ans_t), (res_j, ans_j) = (_answers(tmp_path / s / "eval") for s in "tj")
+    assert ans_t == ans_j and len(ans_t) == 3
+    for key in ("overall_warped_accuracy", "overall_original_accuracy", "accuracy_gain",
+                "total_samples_evaluated"):
+        assert res_t[key] == res_j[key], key
+
+
+def test_chain_needs_no_opencv_or_jax(tmp_path):
+    """Write a code-tag dataset (JPEG, through Pillow), run both CLIs on it
+    on the CPU, in a process where OpenCV and JAX cannot be imported."""
     code = f"""
 import sys
-for name in ("PIL", "cv2", "jax"):
+for name in ("cv2", "jax"):
     sys.modules[name] = None
 from attwarp_tpu_torch.cli import evaluate, process_dataset
 from attwarp_tpu_torch.testing.reader import write_textvqa_dataset

@@ -15,7 +15,7 @@ import torch
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
-from attwarp_tpu_torch.kernels.warp_resample import warp_resample
+from attwarp_tpu_torch.kernels.warp_resample import k1_plan, warp_resample
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
 from attwarp_tpu_torch.warp.warp import warp_grid_maps
 
@@ -48,6 +48,62 @@ def test_k1_cuda_matches_plain(cuda, shape, out_hw, att_hw):
     torch.cuda.synchronize()
     assert warp_resample.launches == before + 1
     assert got.shape == ref.shape == (shape[0], *out_hw, shape[3])
+    assert (got - ref).abs().max().item() <= PIX_TOL
+
+
+def _k1_maps(g, kind, B, H, W, H_out, W_out):
+    """Source coordinates (B, W_out) and (B, H_out): "far" spans far outside
+    [-1, W] and [-1, H] (border replicate), with non-monotone jumps; "zoom4"
+    a 4x magnification of the image's middle, where one source row pair
+    serves four output rows; "random" taps anywhere in the image."""
+    if kind == "far":
+        mx = g.uniform(-3 * W, 4 * W, (B, W_out))
+        my = g.uniform(-3 * H, 4 * H, (B, H_out))
+        mx[:, ::7], my[:, ::5] = -1e6, 1e6
+    elif kind == "zoom4":
+        mx = np.broadcast_to(np.linspace(W / 4, W / 4 + (W_out - 1) / 4, W_out), (B, W_out))
+        my = np.broadcast_to(np.linspace(H / 4, H / 4 + (H_out - 1) / 4, H_out), (B, H_out))
+    else:
+        mx = g.uniform(-1, W, (B, W_out))
+        my = g.uniform(-1, H, (B, H_out))
+    return (np.ascontiguousarray(mx, np.float32), np.ascontiguousarray(my, np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_hw,maps", [
+    ((2, 37, 131, 1), (50, 77), "grid"),        # rows of 524 bytes: cp.async, not TMA
+    ((2, 64, 64, 3), (40, 131), "grid"),        # W_out * C = 393: unaligned output rows
+    ((2, 9, 13, 3), (1, 1), "grid"),            # H_out = W_out = 1
+    ((3, 40, 52, 3), (60, 70), "far"),          # border replicate, any jumps
+    ((2, 64, 64, 3), (256, 256), "zoom4"),      # 4x magnification
+    ((128, 336, 336, 3), (336, 336), "grid"),   # the warp-only shape
+    ((1, 40, 6000, 3), (40, 5000), "grid"),     # rows too wide for two: column tiles
+    ((1, 40, 6000, 3), (40, 5000), "random"),   # tiles whose span overflows a slot: __ldg
+    ((1, 1024, 683, 3), (500, 500), "grid"),    # a 683x1024 photo: 8196-byte rows, cp.async
+], ids=["row524B", "out393", "1x1", "far", "zoom4", "b128_336", "tiled", "tiled_random",
+        "photo683w"])
+def test_k1_cuda_edges(cuda, shape, out_hw, maps):
+    """The kernel's edges against the plain version, within the pixel
+    budget, one launch each."""
+    g = np.random.default_rng(1)
+    B, H, W, C = shape
+    img = torch.as_tensor((g.random(shape) * 255).astype(np.float32), device=cuda)
+    if maps == "grid":
+        att = torch.as_tensor(g.random((B, 24, 24)).astype(np.float32), device=cuda)
+        mx, my = (m.contiguous() for m in warp_grid_maps(att, (H, W), out_hw[1], out_hw[0]))
+    else:
+        mx, my = (torch.as_tensor(m, device=cuda)
+                  for m in _k1_maps(g, maps, B, H, W, *out_hw))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = k1_plan(B, H, W, C, *out_hw, sms)
+    assert plan.tiles > 1 if W == 6000 else plan.tiles == 1
+    assert plan.slots >= 2
+    before = warp_resample.launches
+    got = warp_resample(img, mx, my)
+    ref = remap_bilinear_separable(img, mx, my)
+    torch.cuda.synchronize()
+    assert warp_resample.launches == before + 1
+    assert got.shape == ref.shape == (B, *out_hw, C)
     assert (got - ref).abs().max().item() <= PIX_TOL
 
 

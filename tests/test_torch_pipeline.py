@@ -48,6 +48,36 @@ def test_tokenizer_matches_dry_run_tokenizer(rng):
                 hf.decode(ids, skip_special_tokens=skip), ids
 
 
+def test_tokenizer_files_read_by_hf(tmp_path):
+    """The files the port's tokenizer writes: ``tokenizers`` and
+    ``transformers.AutoTokenizer`` read them into a tokenizer with the
+    port's ids and text, and the port reads them back unchanged."""
+    from tokenizers import Tokenizer
+    from transformers import AutoTokenizer
+
+    ours = DryRunTokenizer()
+    ours.save_pretrained(tmp_path)
+    raw = Tokenizer.from_file(str(tmp_path / "tokenizer.json"))
+    auto = AutoTokenizer.from_pretrained(str(tmp_path))
+    assert auto.vocab == ours.vocab and auto.all_special_ids == ours.all_special_ids
+    assert (auto.bos_token_id, auto.eos_token_id, auto.pad_token_id, auto.unk_token_id) == \
+        (ours.bos_token_id, ours.eos_token_id, ours.pad_token_id, ours.unk_token_id)
+    for text in TEXTS + ["USER: </s> the <s> tag <unk>"]:
+        ids = ours.encode(text)
+        assert raw.encode(text).ids == ids, text
+        assert raw.encode(text, add_special_tokens=False).ids == ours.encode(text, False)
+        for special in (True, False):
+            assert auto.encode(text, add_special_tokens=special) == \
+                ours.encode(text, add_special_tokens=special), text
+        for skip in (True, False):
+            assert auto.decode(ids, skip_special_tokens=skip) == \
+                ours.decode(ids, skip_special_tokens=skip)
+    back = DryRunTokenizer.from_pretrained(tmp_path)
+    assert vars(back).keys() == vars(ours).keys()
+    assert all(getattr(back, k) == v for k, v in vars(ours).items())
+    assert DryRunTokenizer.from_pretrained(tmp_path / "none") is None
+
+
 def test_prompt_and_offset_copies_match():
     for mode in list(j_prompts.CONV_TEMPLATES) + ["unknown"]:
         for q in ("what is shown?", "see <image-placeholder> here"):

@@ -421,18 +421,64 @@ def test_serve_cli_end_to_end(llava, tmp_path, chunked):
     assert [r["tokens"] for r in rows] == [[t for t in res[rid] if t != eos] for rid in rids]
 
 
-def test_checkpoint_round_trip(llava, qwen, tmp_path):
+def test_checkpoint_round_trip(llava, qwen, tmp_path, monkeypatch):
+    """Weights, config and the dry-run tokenizer come back from ``save``,
+    with ``transformers`` made unimportable: the port reads its own
+    ``tokenizer.json`` without it."""
     from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
     from attwarp_tpu_torch.extract.qwen2vl_backend import Qwen2VLBackend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
 
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    ref_tok = DryRunTokenizer()
     for name, cls, m, kw in (("l", LlavaBackend, llava[1], {}),
                              ("q", Qwen2VLBackend, qwen[1], {"image_size": 56})):
-        cls(m, extract_layer=1, **kw).save(tmp_path / name)
+        cls(m, tokenizer=DryRunTokenizer(), extract_layer=1, **kw).save(tmp_path / name)
         be = cls.load(tmp_path / name, "cpu", extract_layer=1, **kw)
         assert be.model.cfg == m.cfg
+        assert type(be.tokenizer) is DryRunTokenizer
+        assert vars(be.tokenizer).keys() == vars(ref_tok).keys()
+        assert all(getattr(be.tokenizer, k) == v for k, v in vars(ref_tok).items())
+        assert be.build_ids("read the code on the tag") == \
+            cls(m, tokenizer=ref_tok, extract_layer=1, **kw).build_ids("read the code on the tag")
         flat = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, be.model.params))
         ref = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, m.params))
         assert len(flat) == len(ref) and all(np.array_equal(a, b) for a, b in zip(flat, ref))
+
+
+def test_checkpoint_reads_hf_saved_tokenizers(llava, tmp_path):
+    """A checkpoint directory whose tokenizer ``build_dry_run_tokenizer``
+    saved loads into the port's word-level tokenizer with HF's ids and
+    text; one the port cannot read itself (a normalizer) comes back
+    through ``transformers.AutoTokenizer``; none gives None."""
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from tools.make_random_7b_ckpt import build_dry_run_tokenizer
+
+    hf = build_dry_run_tokenizer()
+    LlavaBackend(llava[1]).save(tmp_path / "ckpt")
+    assert LlavaBackend.load(tmp_path / "ckpt", "cpu").tokenizer is None
+    hf.save_pretrained(str(tmp_path / "ckpt"))
+    tok = LlavaBackend.load(tmp_path / "ckpt", "cpu").tokenizer
+    assert type(tok) is DryRunTokenizer
+    for text in ("USER: what is the code on the tag? ASSISTANT:", "a </s> b <s>", "Über 3.5!"):
+        for special in (True, False):
+            ids = hf.encode(text, add_special_tokens=special)
+            assert tok.encode(text, add_special_tokens=special) == ids
+            for skip in (True, False):
+                assert tok.decode(ids, skip_special_tokens=skip) == \
+                    hf.decode(ids, skip_special_tokens=skip)
+    other = Tokenizer(models.WordLevel(vocab=hf.get_vocab(), unk_token="<unk>"))
+    other.normalizer = normalizers.Lowercase()
+    other.pre_tokenizer = pre_tokenizers.Whitespace()
+    PreTrainedTokenizerFast(tokenizer_object=other, unk_token="<unk>").save_pretrained(
+        str(tmp_path / "ckpt"))
+    tok = LlavaBackend.load(tmp_path / "ckpt", "cpu").tokenizer
+    assert isinstance(tok, PreTrainedTokenizerFast)
+    assert tok.encode("READ the LABEL") == [hf.get_vocab()[w] for w in ("read", "the", "label")]
 
 
 def test_make_backend_grammar(llava, qwen, tmp_path):

@@ -25,7 +25,18 @@ from attwarp_tpu.warp import transforms as jtr
 from attwarp_tpu.warp.resample import remap_bilinear_separable as j_remap
 from attwarp_tpu.warp.warp import warp_batch_by_attention as j_warp_batch
 
-from attwarp_tpu_torch.kernels.warp_resample import warp_resample
+from attwarp_tpu_torch.kernels.warp_resample import (
+    BAND_ROWS,
+    BLOCK_BUDGET,
+    BLOCKS_PER_SM,
+    MAX_ROWS,
+    MAX_SLOTS,
+    SMEM_BLOCK,
+    THREADS,
+    k1_plan,
+    k1_smem,
+    warp_resample,
+)
 from attwarp_tpu_torch.warp import grid as tgrid
 from attwarp_tpu_torch.warp import transforms as ttr
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
@@ -137,6 +148,77 @@ def test_warp_resample_wrapper_on_cpu_runs_plain(rng):
     assert warp_resample.launches == before
     torch.testing.assert_close(out, remap_bilinear_separable(img, mx, my),
                                rtol=0, atol=0)
+
+
+def test_c_entry_points_match_their_argtypes():
+    """Each ``extern "C"`` entry point in ``csrc/`` takes as many
+    parameters, pointers where pointers are declared, as ``_build`` tells
+    ``ctypes``: a shorter list would pass the trailing stream pointer as a
+    32-bit int."""
+    import ctypes
+    import re
+
+    from attwarp_tpu_torch.kernels import _build
+
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = [("*" in p) for p in params.split(",")]
+    assert found.keys() == _build._SIGNATURES.keys()
+    for name, pointers in found.items():
+        assert [t is ctypes.c_void_p for t in _build._SIGNATURES[name]] == pointers, name
+
+
+# (B, H, W, C, H_out, W_out): the timed shapes, rows that are not 16-byte
+# multiples (C=1, W=131; a 683-wide RGB photo), single pixels, rows too wide for two staged rows
+# (column tiles), a tiny image at large B, a far minified map, a magnified one
+K1_SHAPES = {
+    "pipeline": (4, 512, 640, 3, 500, 500),
+    "driver": (1, 512, 512, 3, 500, 500),
+    "warp_only": (128, 336, 336, 3, 336, 336),
+    "c1_w131": (3, 97, 131, 1, 64, 200),
+    "photo_683w": (1, 1024, 683, 3, 500, 500),
+    "pixel": (2, 9, 13, 3, 1, 1),
+    "tiled_4k": (1, 4096, 4096, 4, 4096, 4096),
+    "tiled_wide": (2, 64, 5000, 3, 64, 4000),
+    "tiny_b1000": (1000, 8, 8, 3, 8, 8),
+    "minified": (1, 100, 100000, 1, 10, 4),
+    "magnified": (8, 256, 256, 1, 2048, 3000),
+}
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES.values(), ids=K1_SHAPES.keys())
+def test_k1_plan(shape):
+    """The launch plan on the H100's 132 SMs: the shared memory the kernel
+    lays out, within the 227 KB a block may use; a grid that covers the
+    output; whole staged rows where two fit in half an SM's shared memory,
+    column tiles otherwise; about ``BLOCKS_PER_SM`` blocks per SM where the
+    output has the rows (the dataset driver's B=1 takes one row a block).
+    The plan is immutable: ``k1_plan`` caches it for every later launch."""
+    B, H, W, C, H_out, W_out = shape
+    p = k1_plan(*shape, 132)
+    assert p.smem == k1_smem(p.rows, p.tile, C, p.slots, p.cap) <= SMEM_BLOCK
+    assert 1 <= p.rows <= min(BAND_ROWS, MAX_ROWS) and p.threads == THREADS
+    assert (p.tiles - 1) * p.tile < W_out <= p.tiles * p.tile
+    assert p.blocks == B * -(-H_out // p.rows) * p.tiles
+    assert 2 <= p.slots <= min(MAX_SLOTS, 2 * p.rows, 3) and p.cap % 4 == 0
+    whole_fits = k1_smem(MAX_ROWS, W_out, C, 2, -(-W * C // 4) * 4) <= BLOCK_BUDGET
+    if whole_fits:
+        assert p.tiles == 1 and p.cap >= W * C          # whole rows staged
+    else:
+        assert p.tile % 4 == 0 and p.smem <= BLOCK_BUDGET and p.cap < W * C
+    if W * C * 4 > 64 * 1024:                           # two rows above half an SM
+        assert not whole_fits and (p.tiles > 1 or W_out <= 4)
+    if B * H_out * p.tiles >= BLOCKS_PER_SM * 132:
+        assert p.blocks >= 0.75 * BLOCKS_PER_SM * 132 or p.rows == BAND_ROWS
+    with pytest.raises(AttributeError):
+        p.slots = 0
+    assert k1_plan(*shape, 132) is p
+    expect = {"pipeline": (4, 2, 500), "driver": (1, 2, 500), "warp_only": (4, 3, 10752),
+              "tiled_4k": (4, 2, 5120), "photo_683w": (1, 2, 500)}
+    name = next(k for k, v in K1_SHAPES.items() if v == shape)
+    if name in expect:
+        assert (p.rows, p.slots, p.blocks) == expect[name]
 
 
 @pytest.mark.parametrize("att_hw", [(64, 80), (8, 10)], ids=["same-res", "low-res"])
