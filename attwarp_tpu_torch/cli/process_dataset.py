@@ -71,15 +71,15 @@ ARTIFACT_DIRS = (
 
 # what each part of the JAX grammar that the port cannot load yet waits for
 _SUFFIX_NOT_PORTED = {
-    "int8": "w8a8 decoder weights ('+int8') wait for ROADMAP Queue 1 item 5",
-    "lm8": "the int8 LM head ('+lm8') waits for ROADMAP Queue 1 item 5",
+    "int8": "w8a8 decoder weights ('+int8') wait for ROADMAP Queue 1 item 2",
+    "lm8": "the int8 LM head ('+lm8') waits for ROADMAP Queue 1 item 2",
 }
 _SPEC_NOT_PORTED = {
     "llava": "loading HF checkpoints ('llava:', from_hf) waits for ROADMAP "
-             "Queue 1 item 4; use llava-ckpt:<dir>",
+             "Queue 1 item 3; use llava-ckpt:<dir>",
     "qwen2vl": "loading HF checkpoints ('qwen2vl:', from_hf) waits for ROADMAP "
-               "Queue 1 item 8; use qwen2vl-ckpt:<dir>",
-    "mini": "the mini test backend waits for ROADMAP Queue 1 item 3",
+               "Queue 1 item 3; use qwen2vl-ckpt:<dir>",
+    "mini": "the mini test backend waits for ROADMAP Queue 1 item 6",
 }
 
 

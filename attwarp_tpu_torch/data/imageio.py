@@ -3,8 +3,10 @@
 ``read_rgb`` is ``attwarp_tpu/warp/io.py::load_image_rgb`` on a path
 (``Image.open(path).convert("RGB")``); ``write_png`` saves as the JAX
 driver saves its artifacts (``Image.fromarray(pixels).save``), as PNG
-whatever the name. Pillow is imported when a file is read or written, so
-importing this module needs none; where Pillow is missing both raise
+whatever the name; ``read_gray`` and ``resize_u8`` are the training
+datasets' ``convert("L")`` and Pillow resizes (``data/manifests.py``).
+Pillow is imported when a file is read or written, so importing this
+module needs none; where Pillow is missing each raises
 ``MissingPillowError``, naming the file and Pillow, which the dataset
 readers let through rather than skip the image.
 """
@@ -39,3 +41,18 @@ def write_png(path: str, pixels: np.ndarray) -> None:
     """Write uint8 ``pixels`` ((H, W) gray or (H, W, 3/4) RGB/RGBA, by
     Pillow's ``fromarray``) to ``path`` as PNG."""
     _image_module(path).fromarray(np.asarray(pixels)).save(path, format="PNG")
+
+
+def read_gray(path: str) -> np.ndarray:
+    """An image file -> (H, W) uint8 luma, by Pillow's ``convert("L")``."""
+    with _image_module(path).open(path) as im:
+        return np.asarray(im.convert("L"))
+
+
+def resize_u8(pixels: np.ndarray, hw, nearest: bool = False) -> np.ndarray:
+    """uint8 ``pixels`` ((H, W) or (H, W, 3)) resized to ``hw = (h, w)`` by
+    Pillow's ``resize``: BILINEAR, or NEAREST where ``nearest``."""
+    Image = _image_module("<array>")
+    h, w = hw
+    im = Image.fromarray(np.asarray(pixels))
+    return np.asarray(im.resize((w, h), Image.NEAREST if nearest else Image.BILINEAR))

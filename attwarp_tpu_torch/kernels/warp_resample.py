@@ -5,8 +5,11 @@ W, C)`` f32 with per-sample source coordinates ``map_x (B, W_out)`` and
 ``map_y (B, H_out)`` into ``(B, H_out, W_out, C)`` f32, with
 ``cv2.remap(INTER_LINEAR, BORDER_REPLICATE)`` semantics.
 
-- CPU tensors: the plain version, ``warp/resample.py::remap_bilinear_separable``.
-- CUDA tensors: ``csrc/warp_resample.cu``, or an exception.
+- CPU tensors: the plain version, ``warp/resample.py::remap_bilinear_separable``,
+  differentiable in the images and both maps.
+- CUDA tensors: ``csrc/warp_resample.cu``, or an exception. The kernel has
+  no backward, so where autograd is on and an input requires a gradient it
+  raises rather than return a result cut from the graph.
 
 Replaces the TPU kernel ``attwarp_tpu/ops/pallas_warp.py::warp_batch_pallas_cf``.
 
@@ -113,6 +116,10 @@ def warp_resample(images: torch.Tensor, map_x: torch.Tensor,
                   map_y: torch.Tensor) -> torch.Tensor:
     if images.device.type == "cpu":
         return remap_bilinear_separable(images, map_x, map_y)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (images, map_x, map_y)):
+        raise RuntimeError("warp_resample: kernel K1 has no backward yet, and an input "
+                           "requires a gradient; run it under torch.no_grad() (the CPU "
+                           "path is differentiable)")
     if images.ndim != 4 or map_x.ndim != 2 or map_y.ndim != 2:
         raise ValueError(f"warp_resample: want images (B, H, W, C), maps "
                          f"(B, n); got {tuple(images.shape)}, "

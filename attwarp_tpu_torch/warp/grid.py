@@ -143,3 +143,27 @@ def inverse_axis_map(
     knots = torch.cat([zero, cum], dim=-1) * out_len
     knots[..., -1] = float(out_len)
     return piecewise_linear_inverse(knots, out_len)
+
+
+def inverse_axis_map_from_cdf(
+    F: torch.Tensor, out_len: int, tie_jitter: bool = True
+) -> torch.Tensor:
+    """One axis of the C4 path: CDFs ``(..., N)`` in [0, 1] -> source
+    coordinates ``(..., out_len)`` (checkpoint_utils.py:167-193).
+
+    Forward knots ``[0, F] * out_len`` (last forced to ``out_len``) against
+    ``[0, 1..N]``. ``tie_jitter``: a CDF whose knots do not strictly
+    increase gets the reference's ramp ``(1e-4 / out_len) * arange`` added
+    to all of its knots first (checkpoint_utils.py:181-184), chosen per CDF
+    on the device, with no host sync."""
+    n = F.shape[-1]
+    F = F.to(torch.float32)
+    zero = torch.zeros_like(F[..., :1])
+    full = torch.full_like(F[..., :1], float(out_len))
+    knots = torch.cat([zero, F[..., :-1] * float(out_len), full], dim=-1)
+    if tie_jitter:
+        has_tie = torch.any(knots[..., 1:] - knots[..., :-1] <= 0.0, dim=-1, keepdim=True)
+        ramp = (1e-4 / max(out_len, 1)) * torch.arange(n + 1, dtype=torch.float32,
+                                                        device=F.device)
+        knots = torch.where(has_tie, knots + ramp, knots)
+    return piecewise_linear_inverse(knots, out_len)

@@ -1,5 +1,6 @@
-"""Attention-guided warp (counterpart of ``warp_batch_by_attention`` and
-``warp_image_by_attention`` in ``attwarp_tpu/warp/warp.py``).
+"""Attention-guided and CDF-driven warps (counterpart of
+``warp_batch_by_attention``, ``warp_image_by_attention`` and
+``warp_from_cdf`` in ``attwarp_tpu/warp/warp.py``).
 
 The grid maps (transform -> marginals -> CDF -> inverse map) are plain
 PyTorch; the resample is kernel K1 (``kernels/warp_resample.py``) at every
@@ -9,12 +10,16 @@ size) chose among TPU forms and is not ported.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from attwarp_tpu_torch.kernels.warp_resample import warp_resample
-from attwarp_tpu_torch.warp.grid import attention_profiles, inverse_axis_map
+from attwarp_tpu_torch.warp.grid import (
+    attention_profiles,
+    inverse_axis_map,
+    inverse_axis_map_from_cdf,
+)
 from attwarp_tpu_torch.warp.transforms import WarpParams
 
 
@@ -72,3 +77,24 @@ def warp_image_by_attention(
     x = image if image.ndim == 3 else image[..., None]
     out = warp_batch_by_attention(x[None], att_map[None], new_width, new_height, params)[0]
     return out if image.ndim == 3 else out[..., 0]
+
+
+def warp_from_cdf(
+    images: torch.Tensor,
+    Fx: torch.Tensor,
+    Fy: torch.Tensor,
+    out_size: Optional[Tuple[int, int]] = None,
+    tie_jitter: bool = True,
+) -> torch.Tensor:
+    """The CDF-driven warp (C4, checkpoint_utils.py:133-204), batched:
+    ``images (B, H, W, C)``, ``Fx (B, W)`` and ``Fy (B, H)`` CDFs in [0, 1]
+    -> ``(B, H_out, W_out, C)`` f32 (``out_size`` ``(H_out, W_out)``, or
+    ``(H, W)``). Every sample's maps, then one ``warp_resample`` for the
+    batch: K1 on a CUDA tensor, its plain version (differentiable) on a CPU
+    tensor."""
+    H, W = images.shape[1], images.shape[2]
+    H_out, W_out = (H, W) if out_size is None else out_size
+    map_x = inverse_axis_map_from_cdf(Fx, W_out, tie_jitter=tie_jitter)
+    map_y = inverse_axis_map_from_cdf(Fy, H_out, tie_jitter=tie_jitter)
+    return warp_resample(images.to(torch.float32).contiguous(), map_x.contiguous(),
+                         map_y.contiguous())

@@ -289,3 +289,26 @@ def test_wrappers_reject_bad_cuda_input(cuda):
     q2, k2, v2, m2 = _k2_case(cuda, 1, 64, 2, 2, seed=7)
     with pytest.raises(ValueError):
         flash_prefill(q2[..., :64], k2[..., :64], v2[..., :64], m2, 0.1)  # hd 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs_grad", ["images", "map_x", "map_y"])
+def test_k1_cuda_refuses_an_input_that_needs_a_gradient(cuda, needs_grad):
+    """K1 has no backward: with autograd on and an input that requires a
+    gradient it raises instead of returning a result cut from the graph;
+    under ``torch.no_grad()`` it launches, equal to the plain version."""
+    g = np.random.default_rng(2)
+    t = {"images": torch.as_tensor(g.random((2, 24, 32, 3)).astype(np.float32), device=cuda),
+         "map_x": torch.linspace(-1.0, 32.0, 40, device=cuda).repeat(2, 1),
+         "map_y": torch.linspace(0.5, 23.5, 20, device=cuda).repeat(2, 1)}
+    t[needs_grad].requires_grad_(True)
+    before = warp_resample.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        warp_resample(t["images"], t["map_x"], t["map_y"])
+    assert warp_resample.launches == before
+    with torch.no_grad():
+        got = warp_resample(t["images"], t["map_x"], t["map_y"])
+        ref = remap_bilinear_separable(t["images"], t["map_x"], t["map_y"])
+    torch.cuda.synchronize()
+    assert warp_resample.launches == before + 1
+    assert (got - ref).abs().max().item() <= 1e-3

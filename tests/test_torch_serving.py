@@ -498,11 +498,11 @@ def test_make_backend_grammar(llava, qwen, tmp_path):
     be = make_backend(f"qwen2vl-ckpt:{tmp_path}/q+kv8", 1, "cpu")
     assert isinstance(be, Qwen2VLBackend) and be.kv_quant and not be.use_flash
     assert be.extract_layer == 1
-    for spec, item in ((f"llava-ckpt:{tmp_path}/l+int8", "item 5"),
-                       (f"llava-ckpt:{tmp_path}/l+kv8+lm8", "item 5"),
-                       ("llava:llava-hf/llava-1.5-7b-hf", "item 4"),
-                       ("qwen2vl:Qwen/Qwen2-VL-7B-Instruct", "item 8"),
-                       ("mini", "item 3"), ("reader+kv8", "no '\\+kv8' path"),
+    for spec, item in ((f"llava-ckpt:{tmp_path}/l+int8", "item 2"),
+                       (f"llava-ckpt:{tmp_path}/l+kv8+lm8", "item 2"),
+                       ("llava:llava-hf/llava-1.5-7b-hf", "item 3"),
+                       ("qwen2vl:Qwen/Qwen2-VL-7B-Instruct", "item 3"),
+                       ("mini", "item 6"), ("reader+kv8", "no '\\+kv8' path"),
                        ("nonsense", "unknown")):
         with pytest.raises(ValueError, match=item):
             make_backend(spec, 0, "cpu")
