@@ -25,12 +25,14 @@ the card.
         --output-dir processed --batch-size 8
 
 A backend spec is ``reader`` (the resolution-limited proxy of
-``testing/reader.py``), ``llava-ckpt:<dir>`` or ``qwen2vl-ckpt:<dir>`` (a
-directory written by the backend's ``save``), with ``+kv8`` (int8 KV
-cache, decode attention through kernel K3) and ``+flash`` (prefill
-attention through kernel K2) composable in any order:
-``llava-ckpt:/ckpt+kv8+flash``. ``--backend`` is required: JAX's default
-test backend ``mini`` is not ported. ``--device`` defaults to ``cuda``.
+``testing/reader.py``), ``llava:<dir>`` or ``qwen2vl:<dir>`` (an HF
+checkpoint, ``from_hf``), or ``llava-ckpt:<dir>`` or ``qwen2vl-ckpt:<dir>``
+(a directory written by the backend's ``save``), with ``+int8`` (w8a8
+decoder linears), ``+lm8`` (int8 LM head), ``+kv8`` (int8 KV cache, decode
+attention through kernel K3) and ``+flash`` (prefill attention through
+kernel K2) composable in any order: ``llava:/hf/llava-1.5-7b+int8+kv8+flash``.
+``--backend`` is required: JAX's default test backend ``mini`` is not
+ported. ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -70,16 +72,16 @@ ARTIFACT_DIRS = (
 )
 
 # what each part of the JAX grammar that the port cannot load yet waits for
-_SUFFIX_NOT_PORTED = {
-    "int8": "w8a8 decoder weights ('+int8') wait for ROADMAP Queue 1 item 2",
-    "lm8": "the int8 LM head ('+lm8') waits for ROADMAP Queue 1 item 2",
-}
 _SPEC_NOT_PORTED = {
-    "llava": "loading HF checkpoints ('llava:', from_hf) waits for ROADMAP "
-             "Queue 1 item 3; use llava-ckpt:<dir>",
-    "qwen2vl": "loading HF checkpoints ('qwen2vl:', from_hf) waits for ROADMAP "
-               "Queue 1 item 3; use qwen2vl-ckpt:<dir>",
     "mini": "the mini test backend waits for ROADMAP Queue 1 item 6",
+}
+
+# backend suffix -> (the backend attribute or method it needs, what it turns on)
+_SUFFIXES = {
+    "int8": ("quantize_int8", "int8 serving path"),
+    "lm8": ("quantize_lm_head", "int8 LM-head path"),
+    "kv8": ("kv_quant", "int8 KV-cache path"),
+    "flash": ("use_flash", "flash-attention prefill path"),
 }
 
 
@@ -104,8 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=DEFAULT_HEIGHT)
     p.add_argument("--limit", type=int, default=None, help="Process at most N samples")
     p.add_argument("--backend", required=True,
-                   help="'reader', 'llava-ckpt:<dir>' or 'qwen2vl-ckpt:<dir>' "
-                        "('+kv8' and '+flash' suffixes compose)")
+                   help="'reader', 'llava:<hf-dir>', 'llava-ckpt:<dir>', "
+                        "'qwen2vl:<hf-dir>' or 'qwen2vl-ckpt:<dir>'; the "
+                        "suffixes '+int8' (w8a8 decoder), '+lm8' (int8 LM "
+                        "head), '+kv8' (int8 KV cache) and '+flash' (flash "
+                        "prefill) compose in any order")
     p.add_argument("--device", default="cuda",
                    help="torch device of the weights, the masks and the warps")
     return p
@@ -123,16 +128,19 @@ def parse_layer_spec(spec) -> "int | tuple":
 
 def make_backend(name: str, layer_index, device):
     """The backend a spec names, its weights loaded onto ``device`` (the
-    reader has none)."""
+    reader has none). Suffixes compose in any order, as in JAX: ``+int8``
+    and ``+lm8`` quantize the decoder's linears and the LM head (w8a8),
+    ``+kv8`` keeps the KV cache in int8 (decode attention through K3) and
+    ``+flash`` runs the prefill through K2."""
     layer_index = parse_layer_spec(layer_index)
     base, sep, suffix = name.rpartition("+")
-    if sep and suffix in ("kv8", "flash", "int8", "lm8"):
-        if suffix in _SUFFIX_NOT_PORTED:
-            raise ValueError(f"{name!r}: {_SUFFIX_NOT_PORTED[suffix]}")
+    if sep and suffix in _SUFFIXES:
         be = make_backend(base, layer_index, device)
-        attr = "kv_quant" if suffix == "kv8" else "use_flash"
+        attr, what = _SUFFIXES[suffix]
         if not hasattr(be, attr):
-            raise ValueError(f"backend {base!r} has no '+{suffix}' path")
+            raise ValueError(f"backend {base!r} has no {what} ('+{suffix}')")
+        if suffix in ("int8", "lm8"):
+            return getattr(be, attr)()
         setattr(be, attr, True)
         return be
     family, _, path = name.partition(":")
@@ -145,13 +153,17 @@ def make_backend(name: str, layer_index, device):
         from attwarp_tpu_torch.testing.reader import ReaderBackend
 
         return ReaderBackend()
-    if family == "llava-ckpt" and path:
+    if family in ("llava", "llava-ckpt") and path:
         from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
 
+        if family == "llava":
+            return LlavaBackend.from_hf(path, device, extract_layer=layer_index)
         return LlavaBackend.load(path, device, extract_layer=layer_index)
-    if family == "qwen2vl-ckpt" and path:
+    if family in ("qwen2vl", "qwen2vl-ckpt") and path:
         from attwarp_tpu_torch.extract.qwen2vl_backend import Qwen2VLBackend
 
+        if family == "qwen2vl":
+            return Qwen2VLBackend.from_hf(path, device, extract_layer=layer_index)
         return Qwen2VLBackend.load(path, device, extract_layer=layer_index)
     raise ValueError(f"unknown backend {name}")
 

@@ -2,7 +2,7 @@
 stream of (image, question) requests through the continuous-batching engine.
 
 Loads a backend spec (``cli/process_dataset.py::make_backend``, e.g.
-``llava-ckpt:<dir>+kv8+flash``) onto ``--device``, reads a JSONL of
+``llava-ckpt:<dir>+int8+kv8+flash``) onto ``--device``, reads a JSONL of
 ``{"image_path"?, "question"}`` or ``{"image_path"?, "input_ids": [...]}``
 requests, serves them through ``ServeEngine`` (``ChunkedPrefillEngine``
 with ``--chunked-prefill P``) and writes one ``{"question", "answer",
@@ -33,8 +33,9 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("Continuous-batching MLLM serving (PyTorch)")
     p.add_argument("--backend", required=True,
-                   help="'llava-ckpt:<dir>' or 'qwen2vl-ckpt:<dir>' ('+kv8' "
-                        "and '+flash' suffixes compose)")
+                   help="'llava:<hf-dir>', 'llava-ckpt:<dir>', 'qwen2vl:<hf-dir>' "
+                        "or 'qwen2vl-ckpt:<dir>'; the suffixes '+int8', '+lm8', "
+                        "'+kv8' and '+flash' compose in any order")
     p.add_argument("--jsonl", required=True,
                    help="requests: one {image_path?, question} per line; "
                         "ids-level clients may pass {input_ids: [...]} "

@@ -16,6 +16,7 @@ Queue 1 item 6).
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -112,12 +113,21 @@ class Qwen2VLFeatureExtractor:
                                 self.max_text_len, add_special_tokens=False)
 
 
+def _backend(cls, path, device):
+    """``cls`` loaded from ``path``: a port checkpoint directory (one
+    holding ``params.pt``, written by the backend's ``save``) through
+    ``load``, anything else as an HF checkpoint through ``from_hf``."""
+    if (Path(path) / "params.pt").is_file():
+        return cls.load(path, device)
+    return cls.from_hf(str(path), device)
+
+
 def make_feature_extractor(cfg, device="cuda"):
     """The frozen-feature extractor named by ``cfg.mllm_backend``:
     ``llava``/``llava-flax`` or ``qwen2vl`` (``qwen2-vl``, ``qwen``) over
-    the port checkpoint directory ``cfg.mllm_model`` (written by the
-    backend's ``save``), its weights on ``device``. Unknown names raise
-    instead of silently training against random features."""
+    ``cfg.mllm_model``, an HF checkpoint (``from_hf``, as JAX reads it) or a
+    port checkpoint directory, its weights on ``device``. Unknown names
+    raise instead of silently training against random features."""
     name = str(cfg.mllm_backend).lower()
     if name == "mini":
         raise ValueError("mllm_backend 'mini': the mini test MLLM and its "
@@ -125,9 +135,9 @@ def make_feature_extractor(cfg, device="cuda"):
     if name in ("llava", "llava-flax"):
         from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
 
-        return LlavaFeatureExtractor(LlavaBackend.load(cfg.mllm_model, device))
+        return LlavaFeatureExtractor(_backend(LlavaBackend, cfg.mllm_model, device))
     if name in ("qwen2vl", "qwen2-vl", "qwen"):
         from attwarp_tpu_torch.extract.qwen2vl_backend import Qwen2VLBackend
 
-        return Qwen2VLFeatureExtractor(Qwen2VLBackend.load(cfg.mllm_model, device))
+        return Qwen2VLFeatureExtractor(_backend(Qwen2VLBackend, cfg.mllm_model, device))
     raise ValueError(f"unknown mllm_backend {cfg.mllm_backend!r}")

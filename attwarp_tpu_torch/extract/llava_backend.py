@@ -8,6 +8,10 @@ in [0, 1] or integers in [0, 255]), as the pipeline passes them, or a
 sequence of host images, which are resized on the model's device first.
 ``_preprocess`` gives the serving engines one image's pixels, and
 ``save``/``load`` keep the checkpoint directory of ``extract/checkpoint.py``.
+``from_hf`` loads an HF checkpoint (a local directory; nothing is
+downloaded) onto a device. ``quantize_int8`` (``+int8``) and
+``quantize_lm_head`` (``+lm8``) turn the decoder's linears and the LM head
+into int8 in place (``numerics/quant.py``).
 """
 
 from __future__ import annotations
@@ -18,10 +22,26 @@ import numpy as np
 import torch
 
 from attwarp_tpu_torch.extract.checkpoint import load_checkpoint, save_checkpoint
+from attwarp_tpu_torch.extract.hf import (
+    first_defined,
+    load_hf_model,
+    processor_tokenizer,
+    rope_field,
+    scalar_id,
+)
 from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.prompts import build_prompt
 from attwarp_tpu_torch.extract.resize import clip_pixels
-from attwarp_tpu_torch.models.llava import LlavaModel, config_from_dict
+from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig
+from attwarp_tpu_torch.models.llama import LlamaConfig
+from attwarp_tpu_torch.models.llava import (
+    LlavaConfig,
+    LlavaModel,
+    config_from_dict,
+    port_hf_llava_weights,
+)
+from attwarp_tpu_torch.numerics.quant import quantize_decoder_params, quantize_lm_head
+from attwarp_tpu_torch.utils.device import require_device
 
 
 class LlavaBackend:
@@ -58,6 +78,66 @@ class LlavaBackend:
         cfg, params, saved = load_checkpoint(path, device, config_from_dict)
         return cls(LlavaModel(cfg, params), tokenizer=saved if tokenizer is None else tokenizer,
                    extract_layer=extract_layer)
+
+    @classmethod
+    def from_hf(cls, model_path: str, device="cuda", extract_layer: int = 20,
+                dtype=None) -> "LlavaBackend":
+        """A backend from an HF LLaVA checkpoint directory, its weights
+        ported onto ``device`` in ``dtype`` (f32 where None), with the
+        tokenizer of its processor (None where none loads)."""
+        device = require_device(device, "LlavaBackend.from_hf")
+        hf = load_hf_model("LlavaForConditionalGeneration", model_path, dtype)
+        cfg = cls.config_from_hf(hf.config)
+        params = port_hf_llava_weights(hf.state_dict(), cfg, device=device,
+                                       dtype=dtype or torch.float32)
+        del hf
+        return cls(LlavaModel(cfg, params), tokenizer=processor_tokenizer(model_path),
+                   extract_layer=extract_layer)
+
+    @staticmethod
+    def config_from_hf(hf_cfg) -> LlavaConfig:
+        """An HF ``LlavaConfig`` (transformers 4.x or 5.x) -> ``LlavaConfig``."""
+        v, t = hf_cfg.vision_config, hf_cfg.text_config
+        eos = getattr(t, "eos_token_id", None)
+        return LlavaConfig(
+            vision=ClipVisionConfig(
+                hidden_size=v.hidden_size, intermediate_size=v.intermediate_size,
+                num_hidden_layers=v.num_hidden_layers,
+                num_attention_heads=v.num_attention_heads, image_size=v.image_size,
+                patch_size=v.patch_size,
+                hidden_act=getattr(v, "hidden_act", "quick_gelu"),
+            ),
+            text=LlamaConfig(
+                vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+                intermediate_size=t.intermediate_size,
+                num_hidden_layers=t.num_hidden_layers,
+                num_attention_heads=t.num_attention_heads,
+                num_key_value_heads=getattr(t, "num_key_value_heads", None),
+                rms_norm_eps=getattr(t, "rms_norm_eps", 1e-5),
+                rope_theta=float(rope_field(t, "rope_theta", 10000.0)),
+            ),
+            vision_feature_layer=getattr(hf_cfg, "vision_feature_layer", -2),
+            image_token_index=first_defined(getattr(hf_cfg, "image_token_id", None),
+                                            getattr(hf_cfg, "image_token_index", None)),
+            pad_token_id=scalar_id(first_defined(getattr(hf_cfg, "pad_token_id", None),
+                                                 eos, 2), 2),
+            eos_token_id=scalar_id(first_defined(eos, 2), 2),
+        )
+
+    # ── int8 weights ───────────────────────────────────────────────────
+    def quantize_int8(self) -> "LlavaBackend":
+        """The LLaMA decoder's seven linears to int8 (w8a8, ``+int8``), in
+        place, one layer at a time on the weights' device: each layer's
+        dense weights are freed as its int8 form is made. Embeddings, LM
+        head, norms, projector and CLIP tower keep their dtype."""
+        quantize_decoder_params(self.model.params["llama"])
+        return self
+
+    def quantize_lm_head(self) -> "LlavaBackend":
+        """The LM head to int8 (``+lm8``), in place, untied from
+        ``embed_tokens`` where it was tied."""
+        quantize_lm_head(self.model.params["llama"])
+        return self
 
     @property
     def device(self) -> torch.device:

@@ -12,7 +12,10 @@ the pipeline passes them, or host images, which are resized on the model's
 device first; then CLIP-normalized (Qwen2-VL's processor uses the OpenAI
 CLIP statistics) and patchified on the device. ``_preprocess`` gives the
 serving engines one image's pixels, and ``save``/``load`` keep the
-checkpoint directory of ``extract/checkpoint.py``.
+checkpoint directory of ``extract/checkpoint.py``. ``from_hf`` loads an HF
+checkpoint (a local directory) onto a device; ``quantize_int8`` (``+int8``)
+and ``quantize_lm_head`` (``+lm8``) turn the text decoder's linears and the
+LM head into int8 in place (``numerics/quant.py``).
 """
 
 from __future__ import annotations
@@ -23,9 +26,26 @@ import numpy as np
 import torch
 
 from attwarp_tpu_torch.extract.checkpoint import load_checkpoint, save_checkpoint
+from attwarp_tpu_torch.extract.hf import (
+    first_defined,
+    load_hf_model,
+    processor_tokenizer,
+    rope_field,
+    scalar_id,
+)
 from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.resize import clip_pixels
-from attwarp_tpu_torch.models.qwen2vl import Qwen2VLModel, config_from_dict, patchify_batch
+from attwarp_tpu_torch.models.qwen2vl import (
+    Qwen2VLConfig,
+    Qwen2VLModel,
+    Qwen2VLTextConfig,
+    Qwen2VLVisionConfig,
+    config_from_dict,
+    patchify_batch,
+    port_hf_qwen2vl_weights,
+)
+from attwarp_tpu_torch.numerics.quant import quantize_decoder_params, quantize_lm_head
+from attwarp_tpu_torch.utils.device import require_device
 
 
 class Qwen2VLBackend:
@@ -72,6 +92,69 @@ class Qwen2VLBackend:
         cfg, params, saved = load_checkpoint(path, device, config_from_dict)
         return cls(Qwen2VLModel(cfg, params), tokenizer=saved if tokenizer is None else tokenizer,
                    extract_layer=extract_layer, image_size=image_size)
+
+    @classmethod
+    def from_hf(cls, model_path: str, device="cuda", extract_layer: int = 20,
+                image_size: int = 448, dtype=None) -> "Qwen2VLBackend":
+        """A backend from an HF Qwen2-VL checkpoint directory, its weights
+        ported onto ``device`` in ``dtype`` (f32 where None), with the
+        tokenizer of its processor (None where none loads)."""
+        device = require_device(device, "Qwen2VLBackend.from_hf")
+        hf = load_hf_model("Qwen2VLForConditionalGeneration", model_path, dtype)
+        cfg = cls.config_from_hf(hf.config)
+        params = port_hf_qwen2vl_weights(hf.state_dict(), cfg, device=device,
+                                         dtype=dtype or torch.float32)
+        del hf
+        return cls(Qwen2VLModel(cfg, params), tokenizer=processor_tokenizer(model_path),
+                   extract_layer=extract_layer, image_size=image_size)
+
+    @staticmethod
+    def config_from_hf(hf_cfg) -> Qwen2VLConfig:
+        """An HF ``Qwen2VLConfig`` (transformers 4.x or 5.x) ->
+        ``Qwen2VLConfig``; ``mrope_section`` from wherever the version keeps
+        it."""
+        v, t = hf_cfg.vision_config, hf_cfg.text_config
+        eos = getattr(t, "eos_token_id", None)
+        return Qwen2VLConfig(
+            vision=Qwen2VLVisionConfig(
+                depth=v.depth, embed_dim=v.embed_dim, hidden_size=v.hidden_size,
+                num_heads=v.num_heads, in_channels=v.in_channels,
+                patch_size=v.patch_size, spatial_merge_size=v.spatial_merge_size,
+                temporal_patch_size=v.temporal_patch_size,
+                mlp_ratio=v.mlp_ratio, hidden_act=v.hidden_act,
+            ),
+            text=Qwen2VLTextConfig(
+                vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+                intermediate_size=t.intermediate_size,
+                num_hidden_layers=t.num_hidden_layers,
+                num_attention_heads=t.num_attention_heads,
+                num_key_value_heads=t.num_key_value_heads,
+                rms_norm_eps=t.rms_norm_eps,
+                rope_theta=float(rope_field(t, "rope_theta", 1000000.0)),
+                mrope_section=tuple(rope_field(t, "mrope_section", [16, 24, 24])),
+            ),
+            image_token_id=hf_cfg.image_token_id,
+            vision_start_token_id=hf_cfg.vision_start_token_id,
+            vision_end_token_id=getattr(hf_cfg, "vision_end_token_id", 151653),
+            pad_token_id=scalar_id(first_defined(getattr(hf_cfg, "pad_token_id", None),
+                                                 eos, 151643), 2),
+            eos_token_id=scalar_id(first_defined(eos, 151645), 2),
+        )
+
+    # ── int8 weights ───────────────────────────────────────────────────
+    def quantize_int8(self) -> "Qwen2VLBackend":
+        """The text decoder's seven linears to int8 (w8a8, ``+int8``; the
+        biased q/k/v keep their bias in f32), in place, one layer at a time
+        on the weights' device. Embeddings, LM head, norms and the vision
+        tower keep their dtype."""
+        quantize_decoder_params(self.model.params["text"])
+        return self
+
+    def quantize_lm_head(self) -> "Qwen2VLBackend":
+        """The LM head to int8 (``+lm8``), in place, untied from
+        ``embed_tokens`` where it was tied."""
+        quantize_lm_head(self.model.params["text"])
+        return self
 
     @property
     def device(self) -> torch.device:

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12     # HBM3, 80 GB part
 BF16_FLOPS = 989e12           # dense tensor-core bf16
+INT8_OPS = 1979e12            # dense tensor-core int8
 F32_FLOPS = 67e12             # f32 outside the tensor cores
+_PEAK_NAMES = {BF16_FLOPS: "bf16 989 TFLOP/s", INT8_OPS: "int8 1979 TOP/s",
+               F32_FLOPS: "f32 67 TFLOP/s"}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS) -> dict:
@@ -25,9 +28,8 @@ def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS) -> dict:
     if t_bytes >= t_ops:
         return {"bound_ms": t_bytes * 1e3, "bound_by": "bytes",
                 "bound_peak": f"hbm {HBM_BYTES_PER_S / 1e12:g} TB/s"}
-    kind = "bf16" if peak_flops == BF16_FLOPS else "f32"
     return {"bound_ms": t_ops * 1e3, "bound_by": "operations",
-            "bound_peak": f"{kind} {peak_flops / 1e12:g} TFLOP/s"}
+            "bound_peak": _PEAK_NAMES[peak_flops]}
 
 
 def causal_segment_pairs(T: int, pads) -> int:
@@ -71,3 +73,13 @@ def k1_work(B: int, H: int, W: int, C: int, H_out: int,
     nbytes = 4 * (B * H * W * C + B * (H_out + W_out) + B * H_out * W_out * C)
     flops = 9 * B * H_out * W_out * C
     return nbytes, flops
+
+
+def w8a8_work(M: int, K: int, N: int, bias: bool = False, in_elem: int = 2,
+              out_elem: int = 2) -> tuple[int, int]:
+    """Bytes and int8 operations of one w8a8 linear (``numerics/quant.py::
+    apply_linear`` on an int8 weight): the activations (M, K) read in their
+    dtype, the int8 weight (N, K), its f32 scales and bias read, the output
+    (M, N) written; 2 * M * N * K int8 operations."""
+    nbytes = M * K * in_elem + N * K + 4 * N * (2 if bias else 1) + M * N * out_elem
+    return nbytes, 2 * M * N * K

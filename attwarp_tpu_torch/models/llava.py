@@ -3,9 +3,9 @@
 
 Parameters are a plain tree of tensors with the JAX tree's layout and
 names (``{"vision": ..., "projector": ..., "llama": ...}``):
-``params_from_jax`` converts a JAX parameter tree (as numpy) and
-``random_params`` makes random weights on the device from a seeded
-``torch.Generator``.
+``params_from_jax`` converts a JAX parameter tree (as numpy),
+``port_hf_llava_weights`` an HF state dict, and ``random_params`` makes
+random weights on the device from a seeded ``torch.Generator``.
 
 ``generate_with_attention`` is a Python decode loop with the JAX scan's
 semantics: the same EOS/PAD rule, and the extract layer's row accumulated
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_carry
 from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig, clip_vision_features
 from attwarp_tpu_torch.models.llama import LlamaConfig, llama_decode_step, llama_prefill
+from attwarp_tpu_torch.numerics.quant import is_quantized
 
 
 @dataclass(frozen=True)
@@ -81,6 +82,20 @@ class LlavaModel:
     @property
     def device(self) -> torch.device:
         return self.params["llama"]["embed_tokens"].device
+
+    def forward_logits(self, input_ids: torch.Tensor, pixel_values: torch.Tensor,
+                       attention_mask: Optional[torch.Tensor] = None,
+                       extract_layer: Optional[int] = None, use_flash: bool = False):
+        """One prefill: (last-position logits (B, vocab) f32, the extract
+        layer's last-row attention or None)."""
+        if attention_mask is None:
+            attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
+                                        device=input_ids.device)
+        embeds = embed_and_splice(self.params, self.cfg, input_ids, pixel_values)
+        logits, _, row = llama_prefill(self.params["llama"], self.cfg.text, embeds,
+                                       attention_mask, max_seq=input_ids.shape[1],
+                                       extract_layer=extract_layer, use_flash=use_flash)
+        return logits, row
 
     def generate_with_attention(
         self,
@@ -159,13 +174,90 @@ def config_from_dict(d: Dict[str, Any]) -> LlavaConfig:
 def params_from_jax(tree, device=None, dtype=None):
     """A JAX LLaVA parameter tree (dicts and lists of arrays, e.g. after
     ``jax.device_get``) -> the same tree of tensors on ``device``, cast to
-    ``dtype`` if given."""
+    ``dtype`` if given. An int8 linear (``{"q", "s"[, "b"]}``, from
+    ``quantize_decoder_params`` or ``quantize_lm_head``) keeps its form:
+    ``q`` stays int8, ``s`` and ``b`` f32 whatever ``dtype`` is."""
+    if is_quantized(tree):
+        return {k: torch.tensor(np.asarray(v, np.int8 if k == "q" else np.float32),
+                                device=device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype) for v in tree]
     t = torch.tensor(np.asarray(tree, dtype=np.float32))
     return t.to(device=device, dtype=dtype or torch.float32)
+
+
+def _strip_prefix(key: str) -> str:
+    """Both HF key layouts -> the classic one: ``model.language_model.X`` ->
+    ``language_model.model.X``, ``model.vision_tower.X`` ->
+    ``vision_tower.X``, ``model.multi_modal_projector.X`` ->
+    ``multi_modal_projector.X`` (transformers >= 4.52); classic keys pass."""
+    if key.startswith("model.language_model."):
+        return "language_model.model." + key[len("model.language_model."):]
+    if key.startswith(("model.vision_tower.", "model.multi_modal_projector.")):
+        return key[len("model."):]
+    return key
+
+
+def port_hf_llava_weights(state_dict: Dict[str, torch.Tensor], cfg: LlavaConfig,
+                          device=None, dtype=torch.float32) -> Dict[str, Any]:
+    """An HF ``LlavaForConditionalGeneration`` state dict (either key
+    layout) -> the port's parameter tree, every tensor cast to ``dtype`` on
+    ``device`` straight from the state dict's tensors. The patch conv
+    ``(hidden, 3, P, P)`` is reordered to the unfold layout ``(hidden,
+    P*P*3)``, as the JAX port does."""
+    sd = {_strip_prefix(k): v for k, v in state_dict.items()}
+
+    def get(key):
+        return sd[key].detach().to(device=device, dtype=dtype)
+
+    def wb(prefix):
+        return {"weight": get(prefix + ".weight"), "bias": get(prefix + ".bias")}
+
+    vt = "vision_tower.vision_model."
+    pw = sd[vt + "embeddings.patch_embedding.weight"]
+    vision = {
+        "patch_weight": pw.detach().permute(0, 2, 3, 1).reshape(pw.shape[0], -1)
+                          .to(device=device, dtype=dtype),
+        "class_embedding": get(vt + "embeddings.class_embedding"),
+        "position_embedding": get(vt + "embeddings.position_embedding.weight"),
+        "pre_layrnorm": wb(vt + "pre_layrnorm"),
+        "layers": [
+            {
+                "layer_norm1": wb(f"{vt}encoder.layers.{i}.layer_norm1"),
+                "layer_norm2": wb(f"{vt}encoder.layers.{i}.layer_norm2"),
+                **{k: wb(f"{vt}encoder.layers.{i}.self_attn.{k}")
+                   for k in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                "fc1": wb(f"{vt}encoder.layers.{i}.mlp.fc1"),
+                "fc2": wb(f"{vt}encoder.layers.{i}.mlp.fc2"),
+            }
+            for i in range(cfg.vision.num_hidden_layers)
+        ],
+    }
+    projector = {k: wb(f"multi_modal_projector.{k}") for k in ("linear_1", "linear_2")}
+    lm = "language_model.model."
+    llama = {
+        "embed_tokens": get(lm + "embed_tokens.weight"),
+        "norm": get(lm + "norm.weight"),
+        "layers": [
+            {
+                "input_layernorm": get(f"{lm}layers.{i}.input_layernorm.weight"),
+                "post_attention_layernorm": get(
+                    f"{lm}layers.{i}.post_attention_layernorm.weight"),
+                **{k: get(f"{lm}layers.{i}.self_attn.{k}.weight")
+                   for k in ("q_proj", "k_proj", "v_proj", "o_proj")},
+                **{k: get(f"{lm}layers.{i}.mlp.{k}.weight")
+                   for k in ("gate_proj", "up_proj", "down_proj")},
+            }
+            for i in range(cfg.text.num_hidden_layers)
+        ],
+    }
+    for key in ("language_model.lm_head.weight", "lm_head.weight"):
+        if key in sd:
+            llama["lm_head"] = get(key)
+            break
+    return {"vision": vision, "projector": projector, "llama": llama}
 
 
 def random_params(cfg: LlavaConfig, generator: torch.Generator, device,

@@ -19,7 +19,8 @@ HF ``Qwen2VLForConditionalGeneration`` for one image per sample:
 numpy, copied from the JAX module (its package imports JAX) and pinned equal
 to the originals by ``tests/test_torch_qwen2vl.py``. ``patchify_batch`` is
 ``patchify_image`` for a batch of images on their device. A JAX parameter
-tree converts with ``models/llava.py::params_from_jax``.
+tree converts with ``models/llava.py::params_from_jax``, an HF state dict
+with ``port_hf_qwen2vl_weights``.
 
 The vision tower computes in the parameters' dtype. (JAX promotes it to f32
 because its patches are f32; on a TPU its default matmul precision rounds
@@ -343,6 +344,29 @@ class Qwen2VLModel:
     def device(self) -> torch.device:
         return self.params["text"]["embed_tokens"].device
 
+    def forward_logits(self, input_ids: torch.Tensor, patches: torch.Tensor,
+                       grid_thw: Tuple[int, int, int],
+                       attention_mask: Optional[torch.Tensor] = None,
+                       extract_layer: Optional[int] = None, use_flash: bool = False):
+        """One prefill of per-sample images ``patches`` (B, N, C*T*P*P):
+        (last-position logits (B, vocab) f32, the extract layer's last-row
+        attention or None)."""
+        if attention_mask is None:
+            attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
+                                        device=input_ids.device)
+        dev = input_ids.device
+        feats = qwen2vl_vision_features(self.params["vision"], self.cfg.vision, patches,
+                                        (grid_thw[1], grid_thw[2]))
+        embeds = embed_and_splice(self.params, self.cfg, input_ids, feats)
+        pos, _ = get_mrope_positions(input_ids.cpu().numpy(), attention_mask.cpu().numpy(),
+                                     grid_thw, self.cfg.image_token_id,
+                                     self.cfg.vision.spatial_merge_size)
+        cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), self.cfg.text)
+        logits, _, row = qwen2vl_prefill(self.params["text"], self.cfg.text, embeds,
+                                         attention_mask, cos, sin, max_seq=input_ids.shape[1],
+                                         extract_layer=extract_layer, use_flash=use_flash)
+        return logits, row
+
     def generate_with_attention(
         self,
         input_ids: torch.Tensor,        # (B, T) expanded, left-padded
@@ -422,6 +446,67 @@ class Qwen2VLModel:
             tok = nxt
         maps = None if carry is None else finalize(carry, side_h, side_w)
         return torch.stack(toks, dim=1), maps
+
+
+def port_hf_qwen2vl_weights(state_dict: Dict[str, torch.Tensor], cfg: Qwen2VLConfig,
+                            device=None, dtype=torch.float32) -> Dict[str, Any]:
+    """An HF ``Qwen2VLForConditionalGeneration`` state dict -> the port's
+    parameter tree, every tensor cast to ``dtype`` on ``device`` straight
+    from the state dict's tensors. Takes both key layouts: ``visual.*`` /
+    ``model.*`` and (transformers >= 4.52) ``model.visual.*`` /
+    ``model.language_model.*``. The 3-D patch conv ``(embed, C, T, P, P)``
+    flattens as it is (the ``patchify_image`` layout)."""
+    sd = {}
+    for k, v in state_dict.items():
+        if k.startswith("model.visual."):
+            k = "visual." + k[len("model.visual."):]
+        elif k.startswith("model.language_model."):
+            k = "model." + k[len("model.language_model."):]
+        sd[k] = v
+
+    def g(key):
+        return sd[key].detach().to(device=device, dtype=dtype)
+
+    def wb(prefix):
+        return {"weight": g(prefix + ".weight"), "bias": g(prefix + ".bias")}
+
+    pw = g("visual.patch_embed.proj.weight")
+    vision = {
+        "patch_weight": pw.reshape(pw.shape[0], -1),
+        "blocks": [
+            {
+                "norm1": wb(f"visual.blocks.{i}.norm1"),
+                "norm2": wb(f"visual.blocks.{i}.norm2"),
+                "qkv": wb(f"visual.blocks.{i}.attn.qkv"),
+                "proj": wb(f"visual.blocks.{i}.attn.proj"),
+                "fc1": wb(f"visual.blocks.{i}.mlp.fc1"),
+                "fc2": wb(f"visual.blocks.{i}.mlp.fc2"),
+            }
+            for i in range(cfg.vision.depth)
+        ],
+        "merger": {"ln_q": wb("visual.merger.ln_q"), "fc1": wb("visual.merger.mlp.0"),
+                   "fc2": wb("visual.merger.mlp.2")},
+    }
+    text = {
+        "embed_tokens": g("model.embed_tokens.weight"),
+        "norm": g("model.norm.weight"),
+        "layers": [
+            {
+                "input_layernorm": g(f"model.layers.{i}.input_layernorm.weight"),
+                "post_attention_layernorm": g(
+                    f"model.layers.{i}.post_attention_layernorm.weight"),
+                **{k: wb(f"model.layers.{i}.self_attn.{k}")
+                   for k in ("q_proj", "k_proj", "v_proj")},
+                "o_proj": g(f"model.layers.{i}.self_attn.o_proj.weight"),
+                **{k: g(f"model.layers.{i}.mlp.{k}.weight")
+                   for k in ("gate_proj", "up_proj", "down_proj")},
+            }
+            for i in range(cfg.text.num_hidden_layers)
+        ],
+    }
+    if "lm_head.weight" in sd:
+        text["lm_head"] = g("lm_head.weight")
+    return {"vision": vision, "text": text}
 
 
 def random_params(cfg: Qwen2VLConfig, generator: torch.Generator, device,

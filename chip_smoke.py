@@ -83,6 +83,38 @@ NVIDIA GPU.
     rounds launch K1. The trainer's metric sink writes locally (wandb is
     made unimportable).
 
+13. The int8 weight forms (``+int8``: the decoder's seven linears w8a8;
+    ``+lm8``: the LM head) and HF checkpoint loading. 13a (after 12b): the
+    int8 product (``numerics/quant.py::int8_matmul``, ``torch._int_mm``,
+    decode rows padded to 24) at every shape the slice runs, LLaVA-1.5-7B
+    q/o, gate/up and down at M = 4, 8, 16 and 4 x 640 and its head at M = 4,
+    Qwen2-VL-7B k/v (with bias), gate and head at M = 4 and 4 x 640: int32
+    sums equal to an f64 product, the output bit-equal to the same
+    arithmetic on that product, times (L2 flushed, warm beside) of the
+    linear, its GEMM and its activation quantization beside bf16
+    ``F.linear`` and the card's least time. 13b: step 6's weights quantized
+    in place (``+int8+kv8+flash``; the memory held must fall by the
+    quantized bytes within 10%): a warm-up and a timed pipeline run (launch
+    counts K1 1, K2 2 x 32, K3 as step 6, the int8 product 7 x 32 per
+    prefill and decode step; logits cos > 0.98 against step 6's bf16 first
+    pass; peak memory down by at least 90% of the quantized bytes), step
+    8's LLaVA serve cell and a steady tick, then ``+lm8`` and one more
+    pipeline run (one more product a step; logits cos > 0.999 against the
+    dense head's); figures printed beside steps 6 and 8. 13c (after Qwen's
+    serve runs): step 7's weights as ``+int8+lm8+kv8+flash``, a warm-up and
+    a timed pipeline run with the same checks against step 7. 13d (last,
+    in a child process that imports ``transformers``): random HF LLaVA and
+    Qwen2-VL at the CPU parity tests' geometry, and LLaVA at 7B width with
+    2 vision and 2 decoder layers, written by ``save_pretrained`` under
+    ``build/chip_smoke/`` and loaded by ``make_backend("llava:<dir>")`` /
+    ``qwen2vl:`` on the card: f32 last-token logits against the HF model's
+    own forward there (eager, TF32 off) within atol 2e-4 / rtol 1e-3; the
+    ``+int8+kv8+flash`` load in int8 on the card, and at 7B width one
+    ``extract`` through K2, K3 and the int8 product.
+
+The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 13a, 13b, 7, 8 (Qwen),
+13c, 9, 13d.
+
 Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
 HBM (the time with L2 warm is reported beside it as ``warm_ms``), beside
@@ -97,7 +129,9 @@ mask) for K2, each checked to agree with the plain version; none for K3.
 Run from the repo root:  python3 chip_smoke.py
 Exits non-zero on any failure and when no CUDA device is present. The last
 line of stdout is {"ok": true, "device": {...}}; the line before it lists
-each kernel with its launches (per path), error and times. Each phase
+each kernel with its launches (per path), error and times, and the line
+before that the int8 product (a library call, not a kernel of the port)
+with its launches per path and step 13a's shapes. Each phase
 prints its wall. ``--parent DIR`` also times the K1 of the checkout in DIR
 (another commit, e.g. unpacked with ``git archive``) against this one's at
 K1's timed shapes, in turns.
@@ -747,15 +781,18 @@ def _images():
     return [(rng.random((480, 640, 3)) * 255).astype(np.uint8) for _ in range(4)]
 
 
-def _drive(tag, backend, n_side, counters, want):
+def _drive(tag, backend, n_side, counters, want, int8_want=0):
     """One warm-up run of the pipeline, then one timed run with every
-    kernel's launch count set to 0 just before it and read just after;
-    checks the counts, the outputs, and the masks and warps against the
-    port's CPU path. Returns the counts."""
+    kernel's launch count (and the int8 product's, which must be
+    ``int8_want``) set to 0 just before it and read just after; checks the
+    counts, the outputs, and the masks and warps against the port's CPU
+    path. Returns (the counts, the run's wall, pass walls and peak
+    memory)."""
     import numpy as np
     import torch
 
     from attwarp_tpu_torch.extract.resize import resize_scale_device
+    from attwarp_tpu_torch.numerics.quant import int8_matmul
     from attwarp_tpu_torch.pipeline import AttWarpPipeline
     from attwarp_tpu_torch.warp.blend import mota_mask
     from attwarp_tpu_torch.warp.warp import warp_batch_by_attention
@@ -769,13 +806,14 @@ def _drive(tag, backend, n_side, counters, want):
 
     torch.cuda.reset_peak_memory_stats()
     backend.seconds.clear()
-    for fn in counters.values():
+    for fn in (*counters.values(), int8_matmul):
         fn.launches = 0
     t0 = time.perf_counter()
     res = pipe.run(images, QUESTIONS)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    launches["int8_matmul"] = int8_matmul.launches
     peak = torch.cuda.max_memory_allocated()
 
     p1, p2 = backend.seconds["pass1"], backend.seconds["pass2"]
@@ -784,7 +822,8 @@ def _drive(tag, backend, n_side, counters, want):
     print(f"[{tag}] first answers {res.first_answers}")
     print(f"[{tag}] second answers {res.second_answers}")
     print(f"[{tag}] launches: " + ", ".join(
-        f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+        f"{name} {launches[name]} (expected {want[name]})" for name in counters)
+        + f", int8_matmul {launches['int8_matmul']} (expected {int8_want})")
     print(f"[{tag}] wall: total {total:.3f} s | pass 1 {p1:.3f} s | mask+warp "
           f"and resizes {total - p1 - p2:.3f} s | pass 2 {p2:.3f} s | "
           f"{4 / total:.3f} samples/s | peak memory {peak / 2**30:.2f} GiB")
@@ -800,6 +839,7 @@ def _drive(tag, backend, n_side, counters, want):
     check(len(res.first_answers) == 4 and len(res.second_answers) == 4, "answers")
     for name in counters:
         check(launches[name] == want[name], f"{name} launch count")
+    check(launches["int8_matmul"] == int8_want, "int8_matmul launch count")
 
     # the card's masks (from its maps) and warps (from its masks) against
     # the port's CPU path on the same inputs
@@ -815,7 +855,7 @@ def _drive(tag, backend, n_side, counters, want):
           f"max|d| {warp_d:.4g} (tol {1e-3 * 255:.3g})")
     check(mask_d <= 1, "masks disagree with the CPU path")
     check(warp_d <= 1e-3 * 255, "warped images disagree with the CPU path")
-    return launches
+    return launches, {"total": total, "pass1": p1, "pass2": p2, "peak": peak}
 
 
 def _counters():
@@ -853,7 +893,31 @@ def phase_slice(dev):
             "flash_prefill": 0,                          # dense prefill here
             # pass 1 reads the extract layer without K3
             "decode_attn_int8": steps * (L - 1) + steps * L}
-    return _drive("6 llava", backend, 24, _counters(), want), backend.backend
+    launches, stats = _drive("6 llava", backend, 24, _counters(), want)
+    # step 13b holds the int8 weights' first-pass logits against these
+    stats["logits"] = _first_pass_logits(backend.backend)
+    return launches, backend.backend, stats
+
+
+def _first_pass_logits(backend):
+    """Last-position logits (f32, on the host) of the pipeline's first pass
+    over the smoke batch: the same device-resized pixels and prompts, one
+    prefill as the backend runs it (through K2 where it has ``+flash``)."""
+    import torch
+
+    from attwarp_tpu_torch.extract.resize import resize_images_batch
+
+    pix = resize_images_batch(_images(), backend.image_size, backend.device)
+    with torch.no_grad():
+        if hasattr(backend.model.cfg, "vision_start_token_id"):
+            ids, mask, patches, grid = backend._prepare(pix, QUESTIONS)
+            logits, _ = backend.model.forward_logits(ids, patches, grid, mask,
+                                                     use_flash=backend.use_flash)
+        else:
+            ids, mask, _, pixels = backend._prepare(pix, QUESTIONS)
+            logits, _ = backend.model.forward_logits(ids, pixels, mask,
+                                                     use_flash=backend.use_flash)
+    return logits.float().cpu()
 
 
 def _to_f32(tree):
@@ -961,8 +1025,10 @@ def phase_qwen(dev):
             "flash_prefill": 2 * L,                           # both prefills
             # pass 1 reads the extract layer without K3
             "decode_attn_int8": steps * (L - 1) + steps * L}
-    return _drive("7 qwen", TimedBackend(inner), inner.num_patches_side,
-                  _counters(), want), inner
+    launches, stats = _drive("7 qwen", TimedBackend(inner), inner.num_patches_side,
+                             _counters(), want)
+    stats["logits"] = _first_pass_logits(inner)     # for step 13c
+    return launches, inner, stats
 
 
 FILLER = " describe every word on the sign in order."
@@ -987,20 +1053,23 @@ def _serve_requests(backend, n, seed, long_every=2, max_new=(8, 32)):
     return reqs
 
 
-def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=0):
+def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=0,
+               int8_per_step=0):
     """One serve run of ``requests`` (all submitted at once) with every
     kernel's launch count set to 0 just before it and read just after.
     Prints tokens/s, TTFT p50/p95, admission waves, peak memory and wall;
-    checks the outputs and that K3 = layers x decode steps and K2 = layers x
-    admission prefills (0 without ``+flash`` or in the chunked engine).
-    Returns (launch counts, the outputs)."""
+    checks the outputs and that K3 = layers x decode steps, K2 = layers x
+    admission prefills (0 without ``+flash`` or in the chunked engine) and
+    the int8 product = ``int8_per_step`` x (prefills + decode steps).
+    Returns (launch counts, the outputs, the run's figures)."""
     import numpy as np
     import torch
 
     from attwarp_tpu_torch.cli.serve import serve
+    from attwarp_tpu_torch.numerics.quant import int8_matmul
 
     counters = _counters()
-    for fn in counters.values():
+    for fn in (*counters.values(), int8_matmul):
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1010,6 +1079,7 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    launches["int8_matmul"] = int8_matmul.launches
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(o) for o in outs)
     ttft = [st["first_token"] - st["submit"] for st in eng.request_stats.values()]
@@ -1017,7 +1087,8 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     L = eng.tcfg.num_hidden_layers
     flash = bool(backend.use_flash) and not chunked_prefill
     want = {"warp_resample": 0, "decode_attn_int8": L * eng.decode_steps,
-            "flash_prefill": L * eng.prefill_groups if flash else 0}
+            "flash_prefill": L * eng.prefill_groups if flash else 0,
+            "int8_matmul": int8_per_step * (eng.prefill_groups + eng.decode_steps)}
     buckets = sorted({-(-len(r["input_ids"]) // 64) * 64 for r in requests})
     admit_s = sum(end - start for start, end, _ in eng.admit_log)
     used = sum(sum(took.values()) for _, took in eng.tick_log)
@@ -1026,7 +1097,7 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
           f"{p95 * 1e3:.1f} ms | {len(eng.admit_log)} admission waves "
           f"({eng.prefill_groups} prefill groups, {eng.decode_steps} decode steps) | "
           f"peak memory {peak / 2**30:.2f} GiB | wall {wall:.3f} s | launches: " + ", ".join(
-              f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+              f"{name} {launches[name]} (expected {want[name]})" for name in launches))
     print(f"[{tag}] host clock: admission {admit_s:.3f} s, ticks {wall - admit_s:.3f} s "
           f"({(wall - admit_s) / max(eng.decode_steps, 1) * 1e3:.1f} ms per decode step); "
           f"slot occupancy {used / max(eng.decode_steps * eng.slots, 1):.3f} "
@@ -1035,9 +1106,11 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     check(all(1 <= len(o) <= r["max_new_tokens"] and all(0 <= t < vocab for t in o)
               for o, r in zip(outs, requests)), f"{tag}: outputs")
     check(eng.decode_steps > 0 and want["decode_attn_int8"] > 0, f"{tag}: no decode step")
-    for name in counters:
+    for name in launches:
         check(launches[name] == want[name], f"{tag}: {name} launch count")
-    return launches, outs
+    step_ms = (wall - admit_s) / max(eng.decode_steps, 1) * 1e3
+    return launches, outs, {"tok_s": n_tok / wall, "ttft_p50": p50, "ttft_p95": p95,
+                            "peak": peak, "step_ms": step_ms}
 
 
 def _time_tick(tag, backend, requests, slots, steps_per_tick=8):
@@ -1062,6 +1135,7 @@ def _time_tick(tag, backend, requests, slots, steps_per_tick=8):
     tick = time.perf_counter() - t0
     print(f"[{tag}] one tick ({steps_per_tick} steps, {slots} slots decoding): host clock "
           f"{tick * 1e3:.1f} ms ({tick / steps_per_tick * 1e3:.1f} ms per step)")
+    return tick * 1e3
 
 
 def _agreement(tag, model, requests, outs, k):
@@ -1113,21 +1187,21 @@ def phase_llava_serve(backend):
     ``+kv8+flash`` tick."""
     backend.kv_quant, backend.use_flash = True, True
     reqs = _serve_requests(backend, 32, seed=1)
-    serve, outs = _serve_run("8 llava serve", backend, reqs, slots=16)
+    serve, outs, stats = _serve_run("8 llava serve", backend, reqs, slots=16)
     _agreement("8 llava serve", backend.model, reqs, outs, 4)
     backend.use_flash = False
-    chunked, _ = _serve_run("8 llava chunked", backend,
-                            _serve_requests(backend, 16, seed=2), slots=16,
-                            chunked_prefill=128)
+    chunked, _, _ = _serve_run("8 llava chunked", backend,
+                               _serve_requests(backend, 16, seed=2), slots=16,
+                               chunked_prefill=128)
     backend.use_flash = True
-    _time_tick("8 llava serve", backend, reqs, slots=16)
-    return serve, chunked
+    stats["tick_ms"] = _time_tick("8 llava serve", backend, reqs, slots=16)
+    return serve, chunked, stats
 
 
 def phase_qwen_serve(backend):
     """Qwen2-VL-7B ``+kv8+flash`` serving at 672 px on the slice's weights."""
     reqs = _serve_requests(backend, 16, seed=3)
-    launches, outs = _serve_run("8 qwen serve", backend, reqs, slots=8)
+    launches, outs, _ = _serve_run("8 qwen serve", backend, reqs, slots=8)
     _agreement("8 qwen serve", backend.model, reqs, outs, 2)
     return launches
 
@@ -1585,6 +1659,422 @@ def phase_codetag():
     return launches
 
 
+# ── step 13: int8 weights (+int8, +lm8) and HF checkpoints ──────────────
+
+INT8_ITERS = 20
+
+
+def _int8_shapes():
+    """(name, M, K, N, bias, head) of every w8a8 product the slice runs: the
+    LLaVA-1.5-7B linears at the decode rows (M = 4 in the pipeline, 8 and 16
+    in the slot pools, padded to 24 rows) and the pipeline's prefill (M = 4
+    x 640), its ``+lm8`` head at the decode rows; Qwen2-VL-7B's biased k/v,
+    its gate and its ``+lm8`` head at M = 4 and 4 x 640."""
+    shapes = []
+    for M in (4, 8, 16, 2560):
+        shapes += [(f"llava7b_qo_m{M}", M, 4096, 4096, False, False),
+                   (f"llava7b_gate_up_m{M}", M, 4096, 11008, False, False),
+                   (f"llava7b_down_m{M}", M, 11008, 4096, False, False)]
+    shapes.append(("llava7b_lm8_m4", 4, 4096, 32064, False, True))
+    for M in (4, 2560):
+        shapes += [(f"qwen7b_kv_m{M}", M, 3584, 512, True, False),
+                   (f"qwen7b_gate_m{M}", M, 3584, 18944, False, False),
+                   (f"qwen7b_lm8_m{M}", M, 3584, 152064, False, True)]
+    return shapes
+
+
+def phase_int8_matmul(dev) -> dict:
+    """13a: the int8 product (``numerics/quant.py::int8_matmul``,
+    ``torch._int_mm``) at every shape the slice runs: its int32 sums equal
+    an f64 product of the same int8 values (exact: |sum| <= K * 127^2 <
+    2^53), and the w8a8 linear's output after the rescale is bit-equal to
+    the same arithmetic on that exact product. Times (L2 flushed, warm
+    beside) of the whole w8a8 linear, of the GEMM alone and of the
+    activation quantization alone, beside bf16 ``F.linear`` on the same
+    shapes and the card's least time for the linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from attwarp_tpu_torch.kernels import roofline
+    from attwarp_tpu_torch.numerics.quant import (
+        apply_linear,
+        int8_matmul,
+        lm_logits,
+        quantize_linear,
+        quantize_rows,
+        rescale,
+    )
+
+    out = {}
+    for i, (name, M, K, N, bias, head) in enumerate(_int8_shapes()):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        W = torch.randn((N, K), generator=g, device=dev, dtype=torch.bfloat16).mul_(0.02)
+        b = torch.randn((N,), generator=g, device=dev, dtype=torch.bfloat16) if bias else None
+        w = quantize_linear({"weight": W, "bias": b} if bias else W)
+        h = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+        if head:
+            params = {"lm_head": w, "embed_tokens": W}
+
+            def linear():
+                return lm_logits(h, params)
+        else:
+            def linear():
+                return apply_linear(h, w)
+        hq, ascale = quantize_rows(h)
+        y = int8_matmul(hq, w["q"])
+        exact = hq.double() @ w["q"].double().t()
+        sums_equal = bool(torch.equal(y.double(), exact))
+        plain = rescale(exact.to(torch.int32), ascale, w)
+        plain = plain if head else plain.to(h.dtype)
+        got = linear()
+        bit_equal = bool(torch.equal(got, plain))
+        del exact, plain, got, y
+        fns = {"w8a8": linear, "gemm": lambda: int8_matmul(hq, w["q"]),
+               "quantize": lambda: quantize_rows(h), "bf16_linear": lambda: F.linear(h, W)}
+        if head:   # the dense head as the port runs it without +lm8: f32 upcast
+            fns["dense_f32_head"] = lambda: lm_logits(h, {"lm_head": W, "embed_tokens": W})
+        cold = alternate_ms(fns, INT8_ITERS, cold=True)
+        warm = {k: cuda_ms(fns[k], INT8_ITERS) for k in ("w8a8", "bf16_linear")}
+        e = with_bound({"M": M, "K": K, "N": N, "padded_rows": max(M, 24),
+                        "ms": cold["w8a8"], "warm_ms": warm["w8a8"], "gemm_ms": cold["gemm"],
+                        "quantize_ms": cold["quantize"], "library": "F.linear bf16",
+                        "library_ms": cold["bf16_linear"], "library_warm_ms": warm["bf16_linear"],
+                        "sums_exact": sums_equal, "bit_equal": bit_equal},
+                       roofline.w8a8_work(M, K, N, bias, out_elem=4 if head else 2),
+                       roofline.INT8_OPS)
+        if head:
+            e["dense_f32_head_ms"] = cold["dense_f32_head"]
+        out[name] = e
+        print(f"[13a int8] {name} ({M}x{K} -> {N}{', bias' if bias else ''}): int32 sums "
+              f"{'exact' if sums_equal else 'DIFFER'}, output "
+              f"{'bit-equal' if bit_equal else 'DIFFERS'} | w8a8 {e['ms']:.4f} ms (warm "
+              f"{e['warm_ms']:.4f}) = GEMM {e['gemm_ms']:.4f} + quantize {e['quantize_ms']:.4f} "
+              f"+ rescale | bf16 F.linear {e['library_ms']:.4f} (warm {e['library_warm_ms']:.4f})"
+              + (f" | dense f32 head {e['dense_f32_head_ms']:.4f}" if head else "")
+              + f" | bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"{e['pct_of_bound']:.1f}% of bound")
+        check(sums_equal, f"{name}: int8 sums differ from the exact product")
+        check(bit_equal, f"{name}: w8a8 output differs from the plain arithmetic")
+        del W, b, w, h, hq, ascale, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _quantized_bytes(text, head: bool) -> int:
+    """Bytes of the decoder's seven linears in every layer, and of the LM
+    head where ``head``."""
+    from attwarp_tpu_torch.numerics.quant import DECODER_LINEAR_KEYS
+
+    n = sum(_tree_bytes(lp[k]) for lp in text["layers"] for k in DECODER_LINEAR_KEYS)
+    return n + (_tree_bytes(text.get("lm_head", text["embed_tokens"])) if head else 0)
+
+
+def _quantize_in_place(tag, backend, text, int8=True, lm8=False):
+    """Quantizes ``backend`` in place (``+int8`` and/or ``+lm8``) and checks
+    that the memory it holds falls by the bytes the tree says, within 10%.
+    Returns that fall in bytes."""
+    import torch
+
+    before = _quantized_bytes(text, lm8)
+    gc.collect()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if int8:
+        backend.quantize_int8()
+    if lm8:
+        backend.quantize_lm_head()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gc.collect()
+    a1 = torch.cuda.memory_allocated()
+    predicted = before - _quantized_bytes(text, lm8)
+    print(f"[{tag}] quantized in place in {secs:.2f} s: memory held {a0 / 2**30:.2f} -> "
+          f"{a1 / 2**30:.2f} GiB, a fall of {(a0 - a1) / 1e9:.3f} GB against the tree's "
+          f"{predicted / 1e9:.3f} GB (tol 10%)")
+    check(abs((a0 - a1) - predicted) <= 0.1 * predicted,
+          f"{tag}: the memory held did not fall by the quantized bytes")
+    return predicted
+
+
+def _print_pipeline_beside(tag, stats, base, base_tag, tokens):
+    """The timed pipeline run's figures beside another run's (host clock)."""
+    def line(s):
+        return (f"{4 / s['total']:.3f} samples/s, {tokens / (s['pass1'] + s['pass2']):.1f} "
+                f"generated tok/s over both passes | pass 1 {s['pass1']:.3f} s, mask+warp and "
+                f"resizes {s['total'] - s['pass1'] - s['pass2']:.3f} s, pass 2 "
+                f"{s['pass2']:.3f} s | peak {s['peak'] / 2**30:.2f} GiB")
+    print(f"[{tag}] {line(stats)}")
+    print(f"[{tag}] beside {base_tag}: {line(base)}")
+
+
+def phase_llava_int8(backend, base6, base8):
+    """13b: step 6's LLaVA-1.5-7B weights, quantized in place
+    (``+int8+kv8+flash``): one warm-up and one timed pipeline run, the
+    serve run of step 8's cell, then ``+lm8`` and one more pipeline run."""
+    L, steps = backend.model.cfg.text.num_hidden_layers, 20
+    text = backend.model.params["llama"]
+    fall = _quantize_in_place("13b llava int8", backend, text)
+    backend.kv_quant, backend.use_flash = True, True
+    want = {"warp_resample": 1, "flash_prefill": 2 * L,
+            "decode_attn_int8": steps * (L - 1) + steps * L}
+    per_step = 7 * L
+    launches, stats = _drive("13b llava int8", TimedBackend(backend), 24, _counters(), want,
+                             int8_want=per_step * 2 * (1 + steps))
+    _print_pipeline_beside("13b llava int8", stats, base6, "step 6 (bf16 +kv8)", 2 * 4 * steps)
+    logits = _first_pass_logits(backend)
+    cos = _cos(logits, base6["logits"])
+    peak_fall = base6["peak"] - stats["peak"]
+    print(f"[13b llava int8] first-pass logits vs step 6's bf16: cos {cos:.6f} (bar > 0.98) | "
+          f"peak memory {stats['peak'] / 2**30:.2f} GiB vs step 6's "
+          f"{base6['peak'] / 2**30:.2f} GiB: down {peak_fall / 1e9:.3f} GB (bar >= 90% of "
+          f"the {fall / 1e9:.3f} GB quantized)")
+    check(cos > 0.98, "13b: int8 logits too far from bf16")
+    check(peak_fall >= 0.9 * fall, "13b: peak memory did not fall with the int8 weights")
+
+    reqs = _serve_requests(backend, 32, seed=1)
+    serve, _, s = _serve_run("13b llava int8 serve", backend, reqs, slots=16,
+                             int8_per_step=per_step)
+    s["tick_ms"] = _time_tick("13b llava int8 serve", backend, reqs, slots=16)
+    print(f"[13b llava int8 serve] +int8+kv8+flash {s['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{s['ttft_p50'] * 1e3:.1f} / p95 {s['ttft_p95'] * 1e3:.1f} ms, "
+          f"{s['step_ms']:.1f} ms per decode step, steady tick {s['tick_ms']:.1f} ms, peak "
+          f"{s['peak'] / 2**30:.2f} GiB | step 8 (+kv8+flash, bf16): {base8['tok_s']:.1f} "
+          f"tok/s, TTFT p50 {base8['ttft_p50'] * 1e3:.1f} / p95 {base8['ttft_p95'] * 1e3:.1f} "
+          f"ms, {base8['step_ms']:.1f} ms per decode step, steady tick "
+          f"{base8['tick_ms']:.1f} ms, peak {base8['peak'] / 2**30:.2f} GiB")
+
+    head_fall = _quantize_in_place("13b llava lm8", backend, text, int8=False, lm8=True)
+    lm8, lm8_stats = _drive("13b llava int8+lm8", TimedBackend(backend), 24, _counters(),
+                            want, int8_want=(per_step + 1) * 2 * (1 + steps))
+    _print_pipeline_beside("13b llava int8+lm8", lm8_stats, stats, "+int8 (dense head)",
+                           2 * 4 * steps)
+    cos_head = _cos(_first_pass_logits(backend), logits)
+    print(f"[13b llava int8+lm8] logits vs the dense head's: cos {cos_head:.6f} (bar > 0.999)"
+          f" | the head's {head_fall / 1e9:.3f} GB quantized")
+    check(cos_head > 0.999, "13b: the int8 head's logits too far from the dense head's")
+    return {"llava_int8": launches, "llava_int8_serve": serve, "llava_int8_lm8": lm8}
+
+
+def phase_qwen_int8(backend, base7):
+    """13c: step 7's Qwen2-VL-7B weights, quantized in place after its serve
+    run (``+int8+lm8+kv8+flash``, 672 px): one warm-up and one timed
+    pipeline run."""
+    L, steps = backend.model.cfg.text.num_hidden_layers, 20
+    fall = _quantize_in_place("13c qwen int8+lm8", backend, backend.model.params["text"],
+                              lm8=True)
+    backend.kv_quant, backend.use_flash = True, True
+    want = {"warp_resample": 1, "flash_prefill": 2 * L,
+            "decode_attn_int8": steps * (L - 1) + steps * L}
+    launches, stats = _drive("13c qwen int8+lm8", TimedBackend(backend),
+                             backend.num_patches_side, _counters(), want,
+                             int8_want=(7 * L + 1) * 2 * (1 + steps))
+    _print_pipeline_beside("13c qwen int8+lm8", stats, base7, "step 7 (bf16 +kv8+flash)",
+                           2 * 4 * steps)
+    cos = _cos(_first_pass_logits(backend), base7["logits"])
+    peak_fall = base7["peak"] - stats["peak"]
+    print(f"[13c qwen int8+lm8] first-pass logits vs step 7's bf16: cos {cos:.6f} (bar > "
+          f"0.98) | peak memory {stats['peak'] / 2**30:.2f} GiB vs step 7's "
+          f"{base7['peak'] / 2**30:.2f} GiB: down {peak_fall / 1e9:.3f} GB (bar >= 90% of "
+          f"the {fall / 1e9:.3f} GB quantized)")
+    check(cos > 0.98, "13c: int8 logits too far from bf16")
+    check(peak_fall >= 0.9 * fall, "13c: peak memory did not fall with the int8 weights")
+    return {"qwen_int8_lm8": launches}
+
+
+def phase_hf():
+    """13d, in a child process (``transformers`` is imported there only):
+    see ``hf_child``. Returns the launch counts of its ``+int8`` extract."""
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.hf_child()"],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=Path(__file__).resolve().parent)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[13d hf] {line}")
+    check(proc.returncode == 0 and lines, f"13d failed: {proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _hf_configs():
+    """(name, model class, config, extract layer, 7B width) of the random
+    HF checkpoints of step 13d: both families at the CPU parity tests'
+    geometry, and LLaVA-1.5-7B's widths with 2 vision and 2 decoder
+    layers."""
+    import transformers as tf
+
+    tiny_llava = tf.LlavaConfig(
+        vision_config=tf.CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                                          num_hidden_layers=3, num_attention_heads=2,
+                                          image_size=28, patch_size=14, projection_dim=32),
+        text_config=tf.LlamaConfig(vocab_size=128, hidden_size=48, intermediate_size=96,
+                                   num_hidden_layers=3, num_attention_heads=4,
+                                   num_key_value_heads=2, max_position_embeddings=256,
+                                   rms_norm_eps=1e-5),
+        image_token_index=99, vision_feature_layer=-2, vision_feature_select_strategy="default")
+    tiny_llava.image_token_id = 99
+    tiny_qwen = tf.Qwen2VLConfig(
+        text_config=dict(vocab_size=128, hidden_size=48, intermediate_size=96,
+                         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                         rms_norm_eps=1e-6, rope_theta=10000.0,
+                         rope_scaling={"type": "mrope", "mrope_section": [2, 2, 2]},
+                         max_position_embeddings=512),
+        vision_config=dict(depth=2, embed_dim=32, hidden_size=48, num_heads=2, in_channels=3,
+                           patch_size=14, spatial_merge_size=2, temporal_patch_size=2,
+                           mlp_ratio=2, hidden_act="quick_gelu"),
+        image_token_id=97, video_token_id=98, vision_start_token_id=96)
+    wide_llava = tf.LlavaConfig(
+        vision_config=tf.CLIPVisionConfig(hidden_size=1024, intermediate_size=4096,
+                                          num_hidden_layers=2, num_attention_heads=16,
+                                          image_size=336, patch_size=14, projection_dim=768),
+        text_config=tf.LlamaConfig(vocab_size=32064, hidden_size=4096, intermediate_size=11008,
+                                   num_hidden_layers=2, num_attention_heads=32,
+                                   num_key_value_heads=32, max_position_embeddings=4096,
+                                   rms_norm_eps=1e-5),
+        image_token_index=32000, vision_feature_layer=-2,
+        vision_feature_select_strategy="default")
+    wide_llava.image_token_id = 32000
+    return (("llava_tiny", tf.LlavaForConditionalGeneration, tiny_llava, 1, False),
+            ("qwen2vl_tiny", tf.Qwen2VLForConditionalGeneration, tiny_qwen, 1, False),
+            ("llava7b_width", tf.LlavaForConditionalGeneration, wide_llava, 1, True))
+
+
+def _hf_inputs(name, cfg, dev, forward):
+    """Seeded inputs for one HF forward (``forward``, the HF model's):
+    (its kwargs, the port's forward arguments)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.models.qwen2vl import patchify_image
+
+    rng = np.random.default_rng(13)
+    if name.startswith("qwen2vl"):
+        patches, grid = patchify_image(rng.random((56, 56, 3)).astype(np.float32), cfg.vision)
+        ids = rng.integers(3, 90, size=(2, 14)).astype(np.int64)
+        ids[:, 2] = cfg.vision_start_token_id
+        ids[:, 3:7] = cfg.image_token_id
+        ids_t = torch.as_tensor(ids, device=dev)
+        mask = torch.ones_like(ids_t)
+        hf_kw = dict(input_ids=ids_t, attention_mask=mask,
+                     pixel_values=torch.as_tensor(np.concatenate([patches, patches]), device=dev),
+                     image_grid_thw=torch.tensor([list(grid)] * 2, device=dev))
+        if "mm_token_type_ids" in inspect.signature(forward).parameters:
+            # transformers 5.x: which tokens are image tokens (1) for M-RoPE,
+            # as its processor returns them
+            hf_kw["mm_token_type_ids"] = (ids_t == cfg.image_token_id).long()
+        return hf_kw, (ids_t, torch.as_tensor(np.stack([patches, patches]), device=dev), grid,
+                       mask.bool())
+    n_img, S = cfg.num_image_tokens, cfg.vision.image_size
+    ids = rng.integers(3, 90, size=(2, n_img + 9)).astype(np.int64)
+    ids[:, 1:1 + n_img] = cfg.image_token_index
+    ids = np.concatenate([np.zeros((2, 3), np.int64), ids], axis=1)   # row 1 left-padded
+    mask = np.ones_like(ids)
+    mask[1, :3] = 0
+    pixels = torch.as_tensor(rng.standard_normal((2, 3, S, S)).astype(np.float32), device=dev)
+    ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+    hf_kw = dict(input_ids=ids_t, pixel_values=pixels, attention_mask=mask_t)
+    return hf_kw, (ids_t, pixels.permute(0, 2, 3, 1), mask_t.bool())
+
+
+def hf_child():
+    """13d: random HF checkpoints (``_hf_configs``) written by
+    ``save_pretrained`` under ``build/chip_smoke/``, loaded on the card by
+    ``make_backend("<family>:<dir>")`` (f32) and ``"<family>:<dir>+int8+kv8
+    +flash"``: the f32 load's last-token logits against the HF model's own
+    forward on the card (f32, eager attention, TF32 off) within the LLaVA
+    parity bars (atol 2e-4, rtol 1e-3); the int8 load's tree in int8 on the
+    card; at LLaVA-1.5-7B width one ``extract`` through K2, K3 and the int8
+    product, with its launch counts (the last line of stdout)."""
+    import numpy as np
+    import torch
+    import transformers
+
+    from attwarp_tpu_torch.cli.process_dataset import make_backend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
+    from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
+    from attwarp_tpu_torch.kernels.warp_resample import warp_resample
+    from attwarp_tpu_torch.numerics.quant import int8_matmul, is_quantized
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    print(f"transformers {transformers.__version__}, torch {torch.__version__}")
+    counts = {}
+    for name, cls, hf_cfg, layer, wide in _hf_configs():
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        hf = cls(hf_cfg).eval()
+        d = _scratch(f"hf_{name}")
+        hf.save_pretrained(str(d))
+        family = "qwen2vl" if name.startswith("qwen2vl") else "llava"
+        t1 = time.perf_counter()
+        be = make_backend(f"{family}:{d}", layer, dev)
+        t2 = time.perf_counter()
+        leaves = list(_leaves(be.model.params))
+        check(all(t.device.type == dev.type and t.dtype == torch.float32 for t in leaves),
+              f"{name}: the f32 load is not f32 on the card")
+        if hasattr(hf, "set_attn_implementation"):
+            hf.set_attn_implementation("eager")
+        else:
+            hf.config._attn_implementation = "eager"
+        hf = hf.to(dev)
+        hf_kw, ours = _hf_inputs(name, be.model.cfg, dev, hf.forward)
+        with torch.no_grad():
+            ref = hf(**hf_kw).logits[:, -1].float()
+            got, _ = be.model.forward_logits(*ours)
+        err = (got - ref).abs()
+        ok = bool((err <= 2e-4 + 1e-3 * ref.abs()).all())
+        tc = be.model.cfg.text
+        print(f"{name}: saved in {t1 - t0:.1f} s, '{family}:<dir>' loaded in {t2 - t1:.1f} s "
+              f"({sum(t.numel() for t in leaves) / 1e6:.1f} M parameters, f32 on {dev}; rope "
+              f"theta {tc.rope_theta}{', mrope ' + str(tc.mrope_section) if family == 'qwen2vl' else ''}); "
+              f"last-token logits vs HF's forward (f32, eager): max|d| {err.max().item():.3g}, "
+              f"max|ref| {ref.abs().max().item():.3g} (bar atol 2e-4 + rtol 1e-3): "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: logits disagree with HF's")
+        del hf, be, leaves
+        torch.cuda.empty_cache()
+        be = make_backend(f"{family}:{d}+int8+kv8+flash", layer, dev)
+        text = be.model.params["text" if family == "qwen2vl" else "llama"]
+        check(all(is_quantized(lp["down_proj"]) and lp["down_proj"]["q"].device.type == dev.type
+                  for lp in text["layers"]), f"{name}: +int8 did not quantize on the card")
+        check(be.kv_quant and be.use_flash, f"{name}: +kv8+flash not set")
+        if wide:
+            be.tokenizer = DryRunTokenizer()
+            fns = (warp_resample, flash_prefill, decode_attn_int8, int8_matmul)
+            for fn in fns:
+                fn.launches = 0
+            steps, L = 4, be.model.cfg.text.num_hidden_layers
+            maps, texts = be.extract(_images(), QUESTIONS, max_new_tokens=steps)
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in fns}
+            want = {"warp_resample": 0, "flash_prefill": L,
+                    "decode_attn_int8": steps * (L - 1), "int8_matmul": 7 * L * (1 + steps)}
+            print(f"{name} +int8+kv8+flash extract: maps {tuple(maps.shape)}, answers {texts} | "
+                  "launches: " + ", ".join(f"{k} {counts[k]} (expected {want[k]})"
+                                           for k in want))
+            m = maps.float().cpu().numpy()
+            check(m.shape == (4, 24, 24) and bool(np.isfinite(m).all())
+                  and np.allclose(m.sum(axis=(1, 2)), 1.0, atol=1e-3), f"{name}: maps")
+            check(counts == want, f"{name}: launch counts")
+        del be, text
+        torch.cuda.empty_cache()
+    print(json.dumps({"hf_llava7b_width": counts}))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1625,8 +2115,8 @@ def main(argv=None) -> int:
     k3 = _phase("4 K3", phase_k3, dev)
     k2 = _phase("5 K2", phase_k2, dev)
     paths = {}
-    paths["llava"], backend = _phase("6 llava", phase_slice, dev)
-    paths["llava_serve"], paths["llava_chunked"] = _phase(
+    paths["llava"], backend, base6 = _phase("6 llava", phase_slice, dev)
+    paths["llava_serve"], paths["llava_chunked"], base8 = _phase(
         "8 llava serve", phase_llava_serve, backend)
     paths["llava_dataset"] = _phase("10 llava dataset", phase_llava_dataset, backend)
     paths["codetag"] = _phase("11 codetag", phase_codetag)
@@ -1634,20 +2124,28 @@ def main(argv=None) -> int:
                                                   phase_marginalnet_chain)
     paths["marginalnet_train"] = _phase("12b marginalnet train", phase_marginalnet_train,
                                         backend, meta_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = _phase("13a int8 product", phase_int8_matmul, dev)
+    paths.update(_phase("13b llava int8", phase_llava_int8, backend, base6, base8))
     del backend
     gc.collect()                 # free the LLaVA weights before Qwen's
     torch.cuda.empty_cache()
-    paths["qwen"], backend = _phase("7 qwen", phase_qwen, dev)
+    paths["qwen"], backend, base7 = _phase("7 qwen", phase_qwen, dev)
     paths["qwen_serve"] = _phase("8 qwen serve", phase_qwen_serve, backend)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(_phase("13c qwen int8", phase_qwen_int8, backend, base7))
     del backend
     gc.collect()
     torch.cuda.empty_cache()
     _phase("9 serve parity", phase_serve_parity, dev)
+    paths.update(_phase("13d hf", phase_hf))
     print(f"[all] wall {time.perf_counter() - t_all:.2f} s")
 
     def launches(name):
-        return {"launches": sum(p[name] for p in paths.values()),
-                "launches_by_path": {k: p[name] for k, p in paths.items()}}
+        return {"launches": sum(p.get(name, 0) for p in paths.values()),
+                "launches_by_path": {k: p.get(name, 0) for k, p in paths.items()}}
 
     kernels = [
         {"name": "warp_resample", "route": "cuda",
@@ -1669,6 +2167,13 @@ def main(argv=None) -> int:
          **{k: k3[k] for k in ("qwen7b", "llava7b_serve", "qwen7b_serve",
                                "llava7b_dataset", "llava7b_dataset_serve")}},
     ]
+    # the int8 product is a library call (torch._int_mm), not a kernel of
+    # the port: its own line, beside the kernels'
+    print(json.dumps({"library_products": [{
+        "name": "int8_matmul", "call": "torch._int_mm",
+        "source": "attwarp_tpu_torch/numerics/quant.py",
+        "replaces": "attwarp_tpu/numerics/quant.py:84 (XLA dot_general, not Pallas)",
+        **launches("int8_matmul"), "shapes": int8}]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -312,3 +312,57 @@ def test_k1_cuda_refuses_an_input_that_needs_a_gradient(cuda, needs_grad):
     torch.cuda.synchronize()
     assert warp_resample.launches == before + 1
     assert (got - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bias", [
+    (4, 4096, 4096, False),       # LLaVA-1.5-7B q/o at the pipeline's decode rows
+    (16, 4096, 11008, False),     # gate/up at the 16-slot pool
+    (17, 11008, 4096, False),     # down, the first row count cuBLASLt takes unpadded
+    (2560, 4096, 4096, False),    # the pipeline's prefill rows
+    (4, 3584, 512, True),         # Qwen2-VL-7B k/v, with bias
+    (8, 3584, 152064, False),     # Qwen2-VL-7B's +lm8 head
+])
+def test_int8_matmul_cuda_matches_exact(cuda, M, K, N, bias):
+    """The int8 product on the card (``torch._int_mm``, decode rows padded)
+    equals an f64 product of the same int8 values exactly, and the w8a8
+    linear after the rescale equals the same arithmetic on that product
+    bit for bit."""
+    from attwarp_tpu_torch.numerics.quant import (
+        apply_linear,
+        int8_matmul,
+        quantize_linear,
+        quantize_rows,
+        rescale,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    W = torch.randn((N, K), generator=g, device=cuda, dtype=torch.bfloat16) * 0.02
+    b = torch.randn((N,), generator=g, device=cuda) if bias else None
+    w = quantize_linear({"weight": W, "bias": b} if bias else W)
+    h = torch.randn((M, K), generator=g, device=cuda, dtype=torch.bfloat16)
+    hq, ascale = quantize_rows(h)
+    launches, padded = int8_matmul.launches, int8_matmul.padded
+    y = int8_matmul(hq, w["q"])
+    exact = hq.double() @ w["q"].double().t()
+    assert y.dtype == torch.int32 and y.shape == (M, N)
+    assert torch.equal(y.double(), exact)
+    assert int8_matmul.launches == launches + 1
+    assert int8_matmul.padded == padded + (M < 24)
+    got = apply_linear(h, w)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, rescale(exact.to(torch.int32), ascale, w).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_cuda_refuses_widths_it_cannot_take(cuda):
+    """A width cuBLASLt's int8 GEMM cannot take raises: no dequantized
+    fallback."""
+    from attwarp_tpu_torch.numerics.quant import int8_matmul
+
+    a = torch.zeros((32, 60), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_matmul(a, torch.zeros((64, 60), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_matmul(torch.zeros((32, 64), dtype=torch.int8, device=cuda),
+                    torch.zeros((60, 64), dtype=torch.int8, device=cuda))

@@ -482,9 +482,10 @@ def test_checkpoint_reads_hf_saved_tokenizers(llava, tmp_path):
 
 
 def test_make_backend_grammar(llava, qwen, tmp_path):
-    """``+kv8`` and ``+flash`` compose in any order; the specs the port
-    cannot load yet raise and name the ROADMAP item that brings them; the
-    reader proxy loads and has no ``+kv8`` path."""
+    """``+kv8`` and ``+flash`` compose in any order (with ``+int8`` and
+    ``+lm8``: ``tests/test_torch_quant.py``); the specs the port cannot
+    load yet raise and name the ROADMAP item that brings them; the reader
+    proxy loads and has no ``+kv8`` or ``+int8`` path."""
     from attwarp_tpu_torch.cli.process_dataset import make_backend, parse_layer_spec
     from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
     from attwarp_tpu_torch.extract.qwen2vl_backend import Qwen2VLBackend
@@ -498,14 +499,14 @@ def test_make_backend_grammar(llava, qwen, tmp_path):
     be = make_backend(f"qwen2vl-ckpt:{tmp_path}/q+kv8", 1, "cpu")
     assert isinstance(be, Qwen2VLBackend) and be.kv_quant and not be.use_flash
     assert be.extract_layer == 1
-    for spec, item in ((f"llava-ckpt:{tmp_path}/l+int8", "item 2"),
-                       (f"llava-ckpt:{tmp_path}/l+kv8+lm8", "item 2"),
-                       ("llava:llava-hf/llava-1.5-7b-hf", "item 3"),
-                       ("qwen2vl:Qwen/Qwen2-VL-7B-Instruct", "item 3"),
-                       ("mini", "item 6"), ("reader+kv8", "no '\\+kv8' path"),
+    for spec, item in (("mini", "item 6"), ("mini+int8", "item 6"),
+                       (f"llava-ckpt:{tmp_path}/l+kv8", "item 4"),
+                       ("reader+kv8", "no int8 KV-cache path"),
+                       ("reader+int8", "no int8 serving path"),
+                       ("reader+lm8", "no int8 LM-head path"),
                        ("nonsense", "unknown")):
         with pytest.raises(ValueError, match=item):
-            make_backend(spec, 0, "cpu")
+            make_backend(spec, "0,1" if "item 4" in item else 0, "cpu")
     assert type(make_backend("reader", 20, "cpu")).__name__ == "ReaderBackend"
 
 
