@@ -29,6 +29,7 @@ _LAZY = {
     "Qwen2VLBackend": ("attwarp_tpu_torch.extract.qwen2vl_backend", "Qwen2VLBackend"),
     "ServeEngine": ("attwarp_tpu_torch.serving.engine", "ServeEngine"),
     "ChunkedPrefillEngine": ("attwarp_tpu_torch.serving.chunked", "ChunkedPrefillEngine"),
+    "llava_api": ("attwarp_tpu_torch.extract.extraction", "llava_api"),
 }
 
 

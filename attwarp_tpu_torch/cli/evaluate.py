@@ -7,10 +7,10 @@ originals too.
         --metadata-dir processed/metadata --output-dir eval \\
         --score-original --batch-size 8
 
-``--model`` takes the backend specs of ``cli/process_dataset.py`` (JAX's
-default ``mini`` is not ported, so it is required); ``--device`` defaults
-to ``cuda``; ``--serve-slots N`` answers through the continuous-batching
-``ServeEngine`` (backends with a tokenizer).
+``--model`` takes the backend specs of ``cli/process_dataset.py`` and
+defaults to ``mini``, as in JAX; ``--device`` defaults to ``cuda``;
+``--serve-slots N`` answers through the continuous-batching ``ServeEngine``
+(backends with a tokenizer).
 """
 
 from __future__ import annotations
@@ -23,9 +23,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("Evaluate MLLM accuracy on TextVQA (warped images, PyTorch)")
     p.add_argument("--metadata-dir", required=True)
     p.add_argument("--output-dir", required=True)
-    p.add_argument("--model", type=str, required=True,
-                   help="backend spec: 'reader', 'llava-ckpt:<dir>' or "
-                        "'qwen2vl-ckpt:<dir>' ('+kv8' and '+flash' suffixes compose)")
+    p.add_argument("--model", type=str, default="mini",
+                   help="backend spec: 'mini' (the test MLLM), 'reader', "
+                        "'llava-ckpt:<dir>' or 'qwen2vl-ckpt:<dir>' ('+kv8' "
+                        "and '+flash' suffixes compose)")
     p.add_argument("--layer-index", type=str, default="20",
                    help="extraction layer for the answering backend")
     p.add_argument("--device", default="cuda", help="torch device of the weights")

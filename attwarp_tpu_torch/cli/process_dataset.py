@@ -7,6 +7,7 @@ attention map in batches and writes the artifact set
     original_images/{sid}_original.png
     masked_images/{sid}_masked.png               (JET overlay)
     raw_attention_maps/{sid}_raw_attn.npy        ((1, 1, n, n) float32)
+    raw_attention_maps/{sid}_raw_attn_layer{l}.npy (one per listed layer)
     attention_maps_images/{sid}_attn_map_img.png (raw map as an image)
     attention_maps/{sid}_mota_mask_vis.png       (grayscale MOTA mask)
     attention_maps/{sid}_mota_mask.npy
@@ -24,15 +25,18 @@ the card.
         --textvqa-json data/codetag_val.json --image-dir data/images \\
         --output-dir processed --batch-size 8
 
-A backend spec is ``reader`` (the resolution-limited proxy of
-``testing/reader.py``), ``llava:<dir>`` or ``qwen2vl:<dir>`` (an HF
-checkpoint, ``from_hf``), or ``llava-ckpt:<dir>`` or ``qwen2vl-ckpt:<dir>``
-(a directory written by the backend's ``save``), with ``+int8`` (w8a8
-decoder linears), ``+lm8`` (int8 LM head), ``+kv8`` (int8 KV cache, decode
-attention through kernel K3) and ``+flash`` (prefill attention through
-kernel K2) composable in any order: ``llava:/hf/llava-1.5-7b+int8+kv8+flash``.
-``--backend`` is required: JAX's default test backend ``mini`` is not
-ported. ``--device`` defaults to ``cuda``.
+A backend spec is ``mini`` (the self-contained test MLLM of
+``extract/mini_llava.py``, the default, as in JAX), ``reader`` (the
+resolution-limited proxy of ``testing/reader.py``), ``llava:<dir>`` or
+``qwen2vl:<dir>`` (an HF checkpoint, ``from_hf``), or ``llava-ckpt:<dir>`` or
+``qwen2vl-ckpt:<dir>`` (a directory written by the backend's ``save``), with
+``+int8`` (w8a8 decoder linears), ``+lm8`` (int8 LM head), ``+kv8`` (int8 KV
+cache, decode attention through kernel K3) and ``+flash`` (prefill attention
+through kernel K2) composable in any order:
+``llava:/hf/llava-1.5-7b+int8+kv8+flash``. ``--layer-index 4,8,20``
+extracts every listed layer in one pass (LLaVA and Qwen2-VL; the mini model
+extracts one) and writes one raw map per layer beside the first layer's
+artifacts. ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -71,11 +75,6 @@ ARTIFACT_DIRS = (
     "checkpoints",
 )
 
-# what each part of the JAX grammar that the port cannot load yet waits for
-_SPEC_NOT_PORTED = {
-    "mini": "the mini test backend waits for ROADMAP Queue 1 item 6",
-}
-
 # backend suffix -> (the backend attribute or method it needs, what it turns on)
 _SUFFIXES = {
     "int8": ("quantize_int8", "int8 serving path"),
@@ -97,16 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=32,
                    help="1 = sequential driver semantics; >1 = batched")
     p.add_argument("--layer-index", type=str, default="20",
-                   help="decoder layer for attention extraction (one layer; "
-                        "lists wait for ROADMAP Queue 1 item 4)")
+                   help="decoder layer for attention extraction; a comma list "
+                        "('4,8,20') extracts every listed layer in one pass and "
+                        "writes per-layer raw maps; the first layer drives the "
+                        "mask and warp artifacts")
     p.add_argument("--max-new-tokens", type=int, default=20)
     p.add_argument("--enhance-coe", type=float, default=10.0)
     p.add_argument("--kernel-size", type=int, default=3)
     p.add_argument("--width", type=int, default=DEFAULT_WIDTH)
     p.add_argument("--height", type=int, default=DEFAULT_HEIGHT)
     p.add_argument("--limit", type=int, default=None, help="Process at most N samples")
-    p.add_argument("--backend", required=True,
-                   help="'reader', 'llava:<hf-dir>', 'llava-ckpt:<dir>', "
+    p.add_argument("--backend", default="mini",
+                   help="'mini' (the self-contained test MLLM), 'reader', "
+                        "'llava:<hf-dir>', 'llava-ckpt:<dir>', "
                         "'qwen2vl:<hf-dir>' or 'qwen2vl-ckpt:<dir>'; the "
                         "suffixes '+int8' (w8a8 decoder), '+lm8' (int8 LM "
                         "head), '+kv8' (int8 KV cache) and '+flash' (flash "
@@ -144,15 +146,21 @@ def make_backend(name: str, layer_index, device):
         setattr(be, attr, True)
         return be
     family, _, path = name.partition(":")
-    if family in _SPEC_NOT_PORTED:
-        raise ValueError(f"{name!r}: {_SPEC_NOT_PORTED[family]}")
-    if not isinstance(layer_index, int):
-        raise ValueError("multi-layer extraction is not ported yet (ROADMAP "
-                         "Queue 1 item 4); give one --layer-index")
     if name == "reader":
         from attwarp_tpu_torch.testing.reader import ReaderBackend
 
         return ReaderBackend()
+    if name == "mini":
+        from attwarp_tpu_torch.extract.extraction import MiniLLaVABackend
+        from attwarp_tpu_torch.extract.mini_llava import MiniLLaVAConfig
+
+        if not isinstance(layer_index, int):
+            raise ValueError("the mini backend extracts one layer; use a "
+                             "LLaVA/Qwen2-VL backend for multi-layer --layer-index")
+        # the layer maps onto the mini model's extract layer, clamped
+        n_layers = MiniLLaVAConfig().n_layers
+        return MiniLLaVABackend(MiniLLaVAConfig(extract_layer=min(layer_index, n_layers - 1)),
+                                device=device)
     if family in ("llava", "llava-ckpt") and path:
         from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
 
@@ -174,24 +182,35 @@ def _host(maps) -> np.ndarray:
     return np.asarray(maps)
 
 
+def _sample_major(maps) -> np.ndarray:
+    """Extract output on the host, sample-major: (B, h, w) stays; a sequence
+    of layers' (L, B, h, w) becomes (B, L, h, w), so ``maps[k]`` is always
+    one sample."""
+    maps = _host(maps)
+    return maps.transpose(1, 0, 2, 3) if maps.ndim == 4 else maps
+
+
 def _extract_with_fallback(backend, images, questions: List[str],
                            max_new_tokens: int):
     """Batch extract; on failure retry per sample; the uniform map as the
-    last resort. Returns (maps (B, n, n) float32 on the host, texts)."""
+    last resort. Returns (sample-major maps float32 on the host: (B, n, n),
+    or (B, L, n, n) for a sequence of extract layers, texts)."""
     try:
         maps, texts = backend.extract(images, questions,
                                       max_new_tokens=max_new_tokens)
-        return _host(maps), texts
+        return _sample_major(maps), texts
     except Exception as e:
         print(f"Batch extraction failed ({e}); retrying per-sample.")
     maps, texts = [], []
     n_side = getattr(backend, "num_patches_side", 24)
-    uniform = np.full((n_side, n_side), 1.0 / n_side**2, np.float32)
+    layers = getattr(backend, "extract_layer", None)
+    lead = () if layers is None or isinstance(layers, int) else (len(layers),)
+    uniform = np.full((*lead, n_side, n_side), 1.0 / n_side**2, np.float32)
     for i in range(len(questions)):
         try:
             m, t = backend.extract(images[i:i + 1], [questions[i]],
                                    max_new_tokens=max_new_tokens)
-            maps.append(_host(m)[0])
+            maps.append(_sample_major(m)[0])
             texts.append(t[0])
         except Exception as e2:
             print(f"Per-sample extraction failed ({e2}); uniform map fallback.")
@@ -312,6 +331,11 @@ def process_dataset(
             image_id = meta.get("image_id", f"sample{i}")
             sid = f"{image_id}_{meta['original_index']}"
             att = np.asarray(maps[k], np.float32)
+            layer_maps = None
+            if att.ndim == 3:  # a sequence of layers (L, h, w): the first is primary
+                layer_ids = tuple(getattr(backend, "extract_layer", range(len(att))))
+                layer_maps = dict(zip(layer_ids, att))
+                att = att[0]
             image = np.asarray(image, np.uint8)
             failed = False
             saved = {
@@ -331,6 +355,14 @@ def process_dataset(
                 raw_path = os.path.join(dirs["raw_attention_maps"], f"{sid}_raw_attn.npy")
                 np.save(raw_path, att[None, None])  # (1, 1, n, n)
                 saved["raw_attention_map_npy"] = raw_path
+
+                if layer_maps is not None:  # one file per extracted layer
+                    saved["raw_attention_maps_per_layer"] = {}
+                    for lid, lmap in layer_maps.items():
+                        lp = os.path.join(dirs["raw_attention_maps"],
+                                          f"{sid}_raw_attn_layer{lid}.npy")
+                        np.save(lp, lmap[None, None])
+                        saved["raw_attention_maps_per_layer"][str(lid)] = lp
 
                 attn_img_path = os.path.join(dirs["attention_maps_images"],
                                              f"{sid}_attn_map_img.png")
@@ -367,6 +399,8 @@ def process_dataset(
                 meta_out = dict(meta)
                 meta_out["sample_id"] = sid
                 meta_out["api_model_name"] = getattr(backend, "name", "unknown")
+                if layer_maps is not None:
+                    meta_out["extract_layers"] = [int(lid) for lid in layer_maps]
                 meta_out["saved_paths"] = saved
                 meta_path = os.path.join(dirs["metadata"], f"{sid}_metadata.json")
                 try:

@@ -3,8 +3,10 @@
 Flag parity with ``cli.py:10-58`` and the JAX CLI, plus ``--device``
 (default ``cuda``; ``--cpu`` is its alias for ``--device cpu``). The mesh
 flags are accepted and kept in the config; the port trains on one device.
-``--mllm-backend llava``/``qwen2vl`` read ``--mllm-model`` as a port
-checkpoint directory (the backends' ``save``).
+``--mllm-backend`` defaults to ``mini`` (``TrainConfig().mllm_backend``, the
+test MLLM's features), as in JAX; ``llava``/``qwen2vl`` read
+``--mllm-model`` as a port checkpoint directory (the backends' ``save``) or
+an HF checkpoint.
 
     python -m attwarp_tpu_torch.cli.train --mllm-backend llava \\
         --mllm-model ckpt/llava --textvqa-root-dir data/textvqa_multilayer ...

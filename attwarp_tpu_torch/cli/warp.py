@@ -6,9 +6,9 @@ same ``run_N`` output-directory convention, same artifact set (original,
 masked overlay, warped, optional 3-panel visualization strip), through
 ``warp/io.py::save_warped_image``; plus ``--device`` (default ``cuda``,
 where the warp is kernel K1). ``--second-pass`` answers the question on the
-warped image with a backend spec of ``cli/process_dataset.py``, loaded
-before the warp so that a spec the port refuses (JAX's default ``mini``
-among them) fails before anything is written.
+warped image with a backend spec of ``cli/process_dataset.py`` (``mini`` by
+default, as in JAX), loaded before the warp so that a spec that fails to
+load fails before anything is written.
 
     python -m attwarp_tpu_torch.cli.warp --image photo.jpg \\
         --attention-map att.npy --transform sqrt --output-dir runs
@@ -65,8 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--question", type=str, default=None,
                    help="question for the second pass")
     p.add_argument("--backend", type=str, default="mini",
-                   help="MLLM backend spec for the second pass: 'reader', "
-                        "'llava-ckpt:<dir>' or 'qwen2vl-ckpt:<dir>' (+kv8, +flash)")
+                   help="MLLM backend spec for the second pass: 'mini' (the "
+                        "test MLLM), 'reader', 'llava-ckpt:<dir>' or "
+                        "'qwen2vl-ckpt:<dir>' (+kv8, +flash)")
     p.add_argument("--layer-index", type=str, default="20",
                    help="extraction layer for the second-pass backend")
     p.add_argument("--max-new-tokens", type=int, default=20)

@@ -1,1 +1,2 @@
-"""Attention extraction: prompts, tokenizer, accumulator, resizes and the LLaVA backend."""
+"""Attention extraction: prompts, tokenizers, accumulator, resizes, the LLaVA
+and Qwen2-VL backends, and the mini test MLLM with its API (``extraction``)."""

@@ -20,41 +20,57 @@ NUM_IMAGE_TOKENS = 576  # 24x24 patches for LLaVA-1.5 (llava.py:50)
 
 
 class AttnCarry(NamedTuple):
-    total: torch.Tensor  # (B, num_image_tokens) running sum of per-step rows
-    count: torch.Tensor  # (B,) number of accumulated steps
+    total: torch.Tensor  # (..., B, num_image_tokens) running sum of per-step rows
+    count: torch.Tensor  # (..., B) number of accumulated steps
 
 
 def init_carry(batch: int, num_image_tokens: int = NUM_IMAGE_TOKENS,
-               device=None) -> AttnCarry:
+               device=None, layers: Optional[int] = None) -> AttnCarry:
+    """An empty carry; with ``layers`` one per extracted layer, stacked
+    along a leading axis (JAX ``vmap``s the same carry over that axis)."""
+    lead = (batch,) if layers is None else (layers, batch)
     return AttnCarry(
-        total=torch.zeros((batch, num_image_tokens), dtype=torch.float32,
+        total=torch.zeros((*lead, num_image_tokens), dtype=torch.float32,
                           device=device),
-        count=torch.zeros((batch,), dtype=torch.float32, device=device),
+        count=torch.zeros(lead, dtype=torch.float32, device=device),
     )
 
 
+def init_layer_carry(extract_layer, batch: int, num_image_tokens: int,
+                     device=None) -> Optional[AttnCarry]:
+    """The carry an extract-layer spec needs: None for the answer-only path
+    (``extract_layer`` None), one carry for a layer, a carry per layer along
+    a leading axis for a sequence of layers."""
+    if extract_layer is None:
+        return None
+    layers = None if isinstance(extract_layer, int) else len(tuple(extract_layer))
+    return init_carry(batch, num_image_tokens, device=device, layers=layers)
+
+
 def slice_and_pool_attention(
-    attn_probs: torch.Tensor,   # (B, H, kv_len) post-softmax row
+    attn_probs: torch.Tensor,   # (..., B, H, kv_len) post-softmax rows
     img_start: torch.Tensor,    # (B,) per-sample image-token start
     num_image_tokens: int = NUM_IMAGE_TOKENS,
 ) -> torch.Tensor:
     """Per-sample slice [st, st+N) (shifted by left padding), renormalize,
-    mean over heads -> (B, N). Positions past the row's end count as 0."""
-    B, H, kv = attn_probs.shape
+    mean over heads -> (..., B, N). Positions past the row's end count as
+    0. Leading axes (one per extracted layer) share ``img_start``."""
+    B, H, kv = attn_probs.shape[-3:]
     pos = torch.arange(num_image_tokens, device=attn_probs.device)[None, :]
     idx = img_start.to(torch.int64)[:, None] + pos               # (B, N)
     valid = idx < kv
     idx = torch.clamp(idx, 0, kv - 1)
-    rows = torch.gather(attn_probs.to(torch.float32), 2,
-                        idx[:, None, :].expand(B, H, num_image_tokens))
+    shape = (*attn_probs.shape[:-1], num_image_tokens)
+    rows = torch.gather(attn_probs.to(torch.float32), -1,
+                        idx[:, None, :].expand(shape))
     rows = torch.where(valid[:, None, :], rows, torch.zeros_like(rows))
     rows = rows / (torch.sum(rows, dim=-1, keepdim=True) + 1e-12)
-    return torch.mean(rows, dim=1)
+    return torch.mean(rows, dim=-2)
 
 
 def accumulate_step(
     carry: AttnCarry,
-    attn_probs: torch.Tensor,  # (B, H, kv_len)
+    attn_probs: torch.Tensor,  # (..., B, H, kv_len), the carry's leading axes
     img_start: torch.Tensor,   # (B,)
     active: torch.Tensor,      # (B,) 1.0 while the sample is still generating
     num_image_tokens: int = NUM_IMAGE_TOKENS,
@@ -67,11 +83,11 @@ def accumulate_step(
 
 def finalize(carry: AttnCarry, side: int = 24,
              side_w: Optional[int] = None) -> torch.Tensor:
-    """Mean over steps -> (B, side, side_w or side); uniform where no step
-    was accumulated (llava.py:126-128, 404-408). ``side_w`` serves
+    """Mean over steps -> (..., B, side, side_w or side); uniform where no
+    step was accumulated (llava.py:126-128, 404-408). ``side_w`` serves
     rectangular grids (Qwen2-VL on non-square images)."""
     n = carry.total.shape[-1]
     uniform = torch.full_like(carry.total, 1.0 / n)
-    mean = carry.total / torch.clamp(carry.count[:, None], min=1.0)
-    out = torch.where(carry.count[:, None] > 0, mean, uniform)
-    return out.reshape(out.shape[0], side, side if side_w is None else side_w)
+    mean = carry.total / torch.clamp(carry.count[..., None], min=1.0)
+    out = torch.where(carry.count[..., None] > 0, mean, uniform)
+    return out.reshape(*out.shape[:-1], side, side if side_w is None else side_w)

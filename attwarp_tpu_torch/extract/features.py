@@ -7,11 +7,10 @@ The contract of the reference's ``LLaVAFeatHelper`` (trainer.py:17,
     visual_tokens(images (B, H, W, 3) in [0, 1]) -> (B, hv, wv, Dv)
     text_tokens(texts) -> (ttok (B, Lt, Dt), tmask (B, Lt, 1))
 
-Both extractors run on their backend's device and return tensors there.
+Every extractor runs on its backend's device and returns tensors there.
 Text ids come from ``tokenizer.encode(text, add_special_tokens=...)``,
 which the port's ``DryRunTokenizer`` and a ``transformers`` tokenizer both
-have. JAX's ``MiniFeatureExtractor`` waits for the mini test MLLM (ROADMAP
-Queue 1 item 6).
+have; the mini's from its ``HashTokenizer``.
 """
 
 from __future__ import annotations
@@ -44,6 +43,40 @@ def _device_images(images, device) -> torch.Tensor:
     if isinstance(images, torch.Tensor):
         return images.to(device, torch.float32)
     return torch.as_tensor(np.asarray(images, np.float32), device=device)
+
+
+class MiniFeatureExtractor:
+    """Frozen features from the MiniLLaVA test backend
+    (``extract/extraction.py::MiniLLaVABackend``): visual tokens are its
+    patch embeddings, text tokens its token embeddings."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.cfg = backend.cfg
+
+    @torch.no_grad()
+    def visual_tokens(self, images) -> torch.Tensor:
+        """(B, H, W, 3) float -> (B, n, n, D) patch features, resized to
+        the mini's input first like ``jax.image.resize`` "linear"."""
+        from attwarp_tpu_torch.extract.mini_llava import encode_images
+
+        S, n = self.cfg.image_size, self.cfg.num_patches
+        x = resize_scale_device(_device_images(images, self.backend.device), 1.0, (S, S))
+        toks = encode_images(self.backend.params, self.cfg, x)
+        return toks.reshape(toks.shape[0], n, n, -1)
+
+    def text_tokens(self, texts: Sequence[str],
+                    max_len: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Texts -> (ttok (B, max_len, D), tmask (B, max_len, 1)): each
+        text's first ``max_len`` ids, left-padded with the pad id to the
+        fixed ``max_len``; the mask is 0 wherever the id is the pad id."""
+        pad = self.cfg.pad_id
+        ids = [self.backend.tokenizer.encode(t)[:max_len] for t in texts]
+        ids = [[pad] * (max_len - len(t)) + t for t in ids]
+        mask = [[1.0 if tok != pad else 0.0 for tok in t] for t in ids]
+        emb = self.backend.params["tok_emb"]
+        idx = torch.as_tensor(np.asarray(ids, np.int64).clip(0), device=emb.device)
+        return emb[idx], torch.as_tensor(np.asarray(mask, np.float32), device=emb.device)[..., None]
 
 
 class LlavaFeatureExtractor:
@@ -123,15 +156,17 @@ def _backend(cls, path, device):
 
 
 def make_feature_extractor(cfg, device="cuda"):
-    """The frozen-feature extractor named by ``cfg.mllm_backend``:
-    ``llava``/``llava-flax`` or ``qwen2vl`` (``qwen2-vl``, ``qwen``) over
-    ``cfg.mllm_model``, an HF checkpoint (``from_hf``, as JAX reads it) or a
-    port checkpoint directory, its weights on ``device``. Unknown names
-    raise instead of silently training against random features."""
+    """The frozen-feature extractor named by ``cfg.mllm_backend``: ``mini``
+    (the test MLLM, seed 0, the default), or ``llava``/``llava-flax`` or
+    ``qwen2vl`` (``qwen2-vl``, ``qwen``) over ``cfg.mllm_model``, an HF
+    checkpoint (``from_hf``, as JAX reads it) or a port checkpoint
+    directory; its weights on ``device``. Unknown names raise instead of
+    silently training against random features."""
     name = str(cfg.mllm_backend).lower()
     if name == "mini":
-        raise ValueError("mllm_backend 'mini': the mini test MLLM and its "
-                         "MiniFeatureExtractor wait for ROADMAP Queue 1 item 6")
+        from attwarp_tpu_torch.extract.extraction import MiniLLaVABackend
+
+        return MiniFeatureExtractor(MiniLLaVABackend(device=device))
     if name in ("llava", "llava-flax"):
         from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
 

@@ -2,7 +2,8 @@
 ``attwarp_tpu/extract/llava_backend.py``).
 
 ``extract(images, questions) -> (maps (B, n, n), texts)`` and the
-answer-only ``answer_batch`` over ``models/llava.py``. Images are either a
+answer-only ``answer_batch`` over ``models/llava.py``; a sequence
+``extract_layer`` extracts every listed layer in one pass, maps (L, B, n, n). Images are either a
 ``(B, S, S, C)`` tensor already resized to the vision tower's input (floats
 in [0, 1] or integers in [0, 255]), as the pipeline passes them, or a
 sequence of host images, which are resized on the model's device first.
@@ -33,7 +34,7 @@ from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.prompts import build_prompt
 from attwarp_tpu_torch.extract.resize import clip_pixels
 from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig
-from attwarp_tpu_torch.models.llama import LlamaConfig
+from attwarp_tpu_torch.models.llama import ExtractSpec, LlamaConfig
 from attwarp_tpu_torch.models.llava import (
     LlavaConfig,
     LlavaModel,
@@ -50,7 +51,7 @@ class LlavaBackend:
     name = "llava-torch"
 
     def __init__(self, model: LlavaModel, tokenizer=None,
-                 extract_layer: int = 20, kv_quant: bool = False,
+                 extract_layer: ExtractSpec = 20, kv_quant: bool = False,
                  use_flash: bool = False):
         self.model = model
         # anything with encode(text, add_special_tokens) and
@@ -70,7 +71,7 @@ class LlavaBackend:
         save_checkpoint(path, self.model.params, self.model.cfg, self.tokenizer)
 
     @classmethod
-    def load(cls, path, device, extract_layer: int = 20,
+    def load(cls, path, device, extract_layer: ExtractSpec = 20,
              tokenizer=None) -> "LlavaBackend":
         """A backend from a directory written by ``save``, its weights on
         ``device``, with the tokenizer saved beside them unless one is
@@ -80,7 +81,7 @@ class LlavaBackend:
                    extract_layer=extract_layer)
 
     @classmethod
-    def from_hf(cls, model_path: str, device="cuda", extract_layer: int = 20,
+    def from_hf(cls, model_path: str, device="cuda", extract_layer: ExtractSpec = 20,
                 dtype=None) -> "LlavaBackend":
         """A backend from an HF LLaVA checkpoint directory, its weights
         ported onto ``device`` in ``dtype`` (f32 where None), with the

@@ -3,7 +3,8 @@
 
 The same interface as ``extract/llava_backend.py``: ``device``,
 ``image_size``, ``extract(images, questions) -> (maps (B, n, n), texts)`` and
-the answer-only ``answer_batch``. The map's side follows the image: a
+the answer-only ``answer_batch``; a sequence ``extract_layer`` extracts every
+listed layer in one pass, maps (L, B, n, n). The map's side follows the image: a
 ``size x size`` input gives ``size / (patch * merge)`` merged vision tokens a
 side (448 px -> 16x16, 672 px -> 24x24); the warp takes any grid.
 
@@ -35,6 +36,7 @@ from attwarp_tpu_torch.extract.hf import (
 )
 from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.resize import clip_pixels
+from attwarp_tpu_torch.models.llama import ExtractSpec, extract_layers_tuple
 from attwarp_tpu_torch.models.qwen2vl import (
     Qwen2VLConfig,
     Qwen2VLModel,
@@ -54,7 +56,7 @@ class Qwen2VLBackend:
     name = "qwen2vl-torch"
 
     def __init__(self, model: Qwen2VLModel, tokenizer=None,
-                 extract_layer: int = 20, image_size: int = 448,
+                 extract_layer: ExtractSpec = 20, image_size: int = 448,
                  kv_quant: bool = False, use_flash: bool = False):
         self.model = model
         # anything with encode(text, add_special_tokens) and
@@ -72,9 +74,10 @@ class Qwen2VLBackend:
             raise ValueError(f"image_size {image_size} is not a multiple of "
                              f"patch * merge = {unit}")
         n_layers = model.cfg.text.num_hidden_layers
-        if not 0 <= extract_layer < n_layers:
-            raise ValueError(f"extract_layer {extract_layer} out of range for "
-                             f"{n_layers}-layer model")
+        for layer in extract_layers_tuple(extract_layer):
+            if not 0 <= layer < n_layers:
+                raise ValueError(f"extract_layer {layer} out of range for "
+                                 f"{n_layers}-layer model")
         self.image_size = image_size
 
     # ── checkpoints ────────────────────────────────────────────────────
@@ -84,7 +87,7 @@ class Qwen2VLBackend:
         save_checkpoint(path, self.model.params, self.model.cfg, self.tokenizer)
 
     @classmethod
-    def load(cls, path, device, extract_layer: int = 20, image_size: int = 448,
+    def load(cls, path, device, extract_layer: ExtractSpec = 20, image_size: int = 448,
              tokenizer=None) -> "Qwen2VLBackend":
         """A backend from a directory written by ``save``, its weights on
         ``device``, with the tokenizer saved beside them unless one is
@@ -94,7 +97,7 @@ class Qwen2VLBackend:
                    extract_layer=extract_layer, image_size=image_size)
 
     @classmethod
-    def from_hf(cls, model_path: str, device="cuda", extract_layer: int = 20,
+    def from_hf(cls, model_path: str, device="cuda", extract_layer: ExtractSpec = 20,
                 image_size: int = 448, dtype=None) -> "Qwen2VLBackend":
         """A backend from an HF Qwen2-VL checkpoint directory, its weights
         ported onto ``device`` in ``dtype`` (f32 where None), with the

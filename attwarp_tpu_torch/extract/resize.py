@@ -1,6 +1,7 @@
 """Bilinear resizes on the device (counterpart of ``resize_images_batch``,
 ``resize_scale_device``, ``_resize_for_backend`` and ``_to_uint8_rgb`` in
-``attwarp_tpu/extract/extraction.py``).
+``attwarp_tpu/extract/extraction.py``), and the host cubic resize with which
+the layer sweep upscales its maps (``jax.image.resize(..., "cubic")``).
 
 They equal ``jax.image.resize(..., "linear")``, which antialiases when it
 downsamples (the triangle kernel is widened by the inverse scale) and
@@ -21,22 +22,74 @@ import torch
 from attwarp_tpu_torch.models.clip_vit import CLIP_MEAN, CLIP_STD
 
 
-@lru_cache(maxsize=64)
-def linear_weight_matrix(in_len: int, out_len: int) -> np.ndarray:
-    """(in_len, out_len) float32 weights of ``jax.image.resize`` "linear"
-    along one axis (``jax._src.image.scale.compute_weight_mat`` with the
-    triangle kernel, antialias on, no translation)."""
+def _fma(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` with one rounding, as a fused multiply-add: the
+    float64 product of two float32 values is exact. XLA contracts the
+    multiply-adds of JAX's weight rule into FMAs."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.float64(c)).astype(np.float32)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5 (JAX's
+    ``_fill_keys_cubic_kernel``), its Horner steps as FMAs."""
+    inner = _fma(_fma(_fma(1.5, x, -2.5), x, 0.0), x, 1.0)
+    outer = _fma(_fma(_fma(-0.5, x, 2.5), x, -4.0), x, 2.0)
+    out = np.where(x >= np.float32(1.0), outer, inner)
+    return np.where(x >= np.float32(2.0), np.float32(0.0), out).astype(np.float32)
+
+
+def _weight_matrix(in_len: int, out_len: int, kernel, fused: bool) -> np.ndarray:
+    """(in_len, out_len) float32 weights of ``jax.image.resize`` along one
+    axis (``jax._src.image.scale.compute_weight_mat``, antialias on, no
+    translation): the kernel widened by the inverse scale when it
+    downsamples, each column normalised over its taps inside the input,
+    columns whose sample falls outside ``[-0.5, in_len - 0.5]`` zeroed.
+    ``fused`` places the samples with an FMA, as XLA does."""
     f32 = np.float32
     inv_scale = f32(1.0 / (out_len / in_len))
     kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = (np.arange(out_len, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    steps = np.arange(out_len, dtype=f32) + f32(0.5)
+    sample_f = _fma(inv_scale, steps, -0.5) if fused else steps * inv_scale - f32(0.5)
     x = np.abs(sample_f[None, :] - np.arange(in_len, dtype=f32)[:, None]) / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    w = kernel(x)
     total = np.sum(w, axis=0, keepdims=True)
     safe = np.where(total != 0, total, f32(1.0))
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / safe, f32(0.0))
     inside = (sample_f >= -0.5) & (sample_f <= in_len - 0.5)
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+@lru_cache(maxsize=64)
+def linear_weight_matrix(in_len: int, out_len: int) -> np.ndarray:
+    """(in_len, out_len) float32 weights of ``jax.image.resize`` "linear"
+    along one axis (the triangle kernel). The samples are placed unfused:
+    the port's image paths were built and held to their bars with these
+    weights, within ~1e-6 of XLA's."""
+    return _weight_matrix(in_len, out_len, _triangle, fused=False)
+
+
+@lru_cache(maxsize=64)
+def cubic_weight_matrix(in_len: int, out_len: int) -> np.ndarray:
+    """(in_len, out_len) float32 weights of ``jax.image.resize`` "cubic"
+    along one axis (Keys' kernel, a = -0.5). Not ``warp/blend.py``'s
+    cv2-style cubic of the JAX package, which clamps its taps at the
+    border. Fused like XLA's, to hold the weights within 1e-6 of JAX's."""
+    return _weight_matrix(in_len, out_len, _keys_cubic, fused=True)
+
+
+def resize_cubic(att: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """A 2-D float32 map resized like ``jax.image.resize(att, out_hw,
+    "cubic")``, on the host: only the axes whose size changes."""
+    x = np.asarray(att, np.float32)
+    if x.shape[0] != out_hw[0]:
+        x = cubic_weight_matrix(x.shape[0], out_hw[0]).T @ x
+    if x.shape[1] != out_hw[1]:
+        x = x @ cubic_weight_matrix(x.shape[1], out_hw[1])
+    return x
 
 
 def resize_linear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -15,9 +15,11 @@ the extract layer's row then comes from the O(T) ``_last_row_probs``, so no
 serve Qwen2-VL's M-RoPE decoder too. ``llama_decode_step`` runs one token against
 a dense or an int8 (``+kv8``) cache, at one position shared by the batch or
 at each row's own position (the serving slots). With the int8 cache every
-layer except the extract layer reads the cache through kernel K3
-(``kernels/decode_attn.py``); the extract layer keeps the plain
+layer that ``extract_layer`` does not list reads the cache through kernel
+K3 (``kernels/decode_attn.py``); a listed layer keeps the plain
 ``_attn_quantcache`` form because it needs the probabilities row.
+``extract_layer`` is None, a layer or a sequence of layers
+(``extract_layers_tuple``), whose rows come back stacked in its order.
 
 The decode step writes the new token's K/V into the cache IN PLACE and then
 reads the updated layer plane, which is a view and costs no copy. The JAX
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -245,25 +247,56 @@ def _qkv(lp: Dict[str, Any], cfg: LlamaConfig, x, cos, sin):
     return q, k, v
 
 
-def _check_layer(extract_layer: Optional[int], cfg: LlamaConfig) -> None:
-    if extract_layer is not None and not 0 <= extract_layer < cfg.num_hidden_layers:
-        raise ValueError(f"extract_layer {extract_layer} out of range "
+ExtractSpec = Union[None, int, Sequence[int]]
+
+
+def extract_layers_tuple(extract_layer: ExtractSpec) -> Tuple[int, ...]:
+    """An extract-layer spec (None, an int or a sequence of ints) as a tuple.
+    A sequence extracts one probabilities row per listed layer in one
+    forward pass (the training data of the reference's ``*_multilayer``
+    roots needs several layers a sample)."""
+    if extract_layer is None:
+        return ()
+    if isinstance(extract_layer, int):
+        return (extract_layer,)
+    return tuple(int(layer) for layer in extract_layer)
+
+
+def _check_layer(extract_layer: ExtractSpec, cfg: LlamaConfig) -> Tuple[int, ...]:
+    """The spec's layers, after checking that each is a decoder layer."""
+    want = extract_layers_tuple(extract_layer)
+    missing = [layer for layer in want if not 0 <= layer < cfg.num_hidden_layers]
+    if missing:
+        raise ValueError(f"extract_layer {missing} out of range "
                          f"(no such decoder layer)")
+    return want
+
+
+def _stack_rows(rows: Dict[int, torch.Tensor], extract_layer: ExtractSpec):
+    """The rows in the spec's container: None -> None, an int -> (B, H, T),
+    a sequence -> (L, B, H, T) in the spec's order."""
+    if extract_layer is None:
+        return None
+    if isinstance(extract_layer, int):
+        return rows[extract_layer]
+    return torch.stack([rows[layer] for layer in extract_layers_tuple(extract_layer)])
 
 
 def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
-                    max_seq: int, extract_layer: Optional[int] = None,
+                    max_seq: int, extract_layer: ExtractSpec = None,
                     use_flash: bool = False, kv_quant: bool = False):
     """The prefill body of both families, given each position's rotary
     ``cos``/``sin`` (B, T, hd): LLaMA's from ``rope_cos_sin``, Qwen2-VL's
     from M-RoPE. Returns (last-position logits (B, vocab) f32, the KV cache
-    allocated to ``max_seq`` slots, the extract layer's last-row
-    probabilities (B, H, T) or None).
+    allocated to ``max_seq`` slots, the extract rows or None): an int
+    ``extract_layer`` gives its layer's last-row probabilities (B, H, T), a
+    sequence one row per listed layer, (L, B, H, T) in the spec's order.
 
     ``use_flash`` takes kernel K2 where ``flash_prefill_supported`` says so;
-    the row then comes from ``_last_row_probs`` (the causal mask's last row
-    is ``attention_mask`` itself) and no (T, T) mask is built."""
-    _check_layer(extract_layer, cfg)
+    the listed layers' rows then come from ``_last_row_probs`` (the causal
+    mask's last row is ``attention_mask`` itself) and no (T, T) mask is
+    built."""
+    want = _check_layer(extract_layer, cfg)
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     flash = use_flash and flash_prefill_supported(T)
@@ -276,17 +309,17 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
         cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev)
 
     x = inputs_embeds
-    row = None
+    rows = {}
     for i, lp in enumerate(params["layers"]):
         q, k, v = _qkv(lp, cfg, x, cos, sin)
         if flash:
             attn = _flash_attn(q, k, v, attention_mask, cfg)
-            if i == extract_layer:
-                row = _last_row_probs(q[:, -1], k, attention_mask, cfg)
+            if i in want:
+                rows[i] = _last_row_probs(q[:, -1], k, attention_mask, cfg)
         else:
-            attn, r = _attn(q, k, v, mask, cfg, want_probs=(i == extract_layer))
+            attn, r = _attn(q, k, v, mask, cfg, want_probs=i in want)
             if r is not None:
-                row = r
+                rows[i] = r
         if kv_quant:
             cache.k_q[i, :, :T], cache.k_s[i, :, :T] = quantize_kv(k)
             cache.v_q[i, :, :T], cache.v_s[i, :, :T] = quantize_kv(v)
@@ -294,7 +327,7 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
             cache.k[i, :, :T] = k
             cache.v[i, :, :T] = v
         x = layer_residuals(lp, cfg, x, attn)
-    return final_logits(params, cfg, x[:, -1]), cache, row
+    return final_logits(params, cfg, x[:, -1]), cache, _stack_rows(rows, extract_layer)
 
 
 def llama_prefill(
@@ -303,7 +336,7 @@ def llama_prefill(
     inputs_embeds: torch.Tensor,    # (B, T, D)
     attention_mask: torch.Tensor,   # (B, T) bool, False on left padding
     max_seq: int,
-    extract_layer: Optional[int] = None,
+    extract_layer: ExtractSpec = None,
     use_flash: bool = False,
     kv_quant: bool = False,
 ):
@@ -346,39 +379,40 @@ def attend_cache(kv, layer: int, q: torch.Tensor, kv_mask: torch.Tensor,
 
 
 def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
-                        kv_mask, extract_layer: Optional[int] = None):
+                        kv_mask, extract_layer: ExtractSpec = None):
     """One token against the cache, given its rotary ``cos``/``sin``
     (B, 1, hd); the decode body of both families. Returns (logits (B, vocab)
-    f32, the cache, the extract layer's probabilities row (B, H, max_seq) or
-    None).
+    f32, the cache, the extract rows or None: (B, H, max_seq) for an int
+    ``extract_layer``, (L, B, H, max_seq) for a sequence, in its order).
 
     ``cur_len`` is the cache position of the new token: one Python int for
     the whole batch (the generate loop), or a (B,) long tensor with each
     row's own position (the serving engines' slots). Each layer writes its
     new K/V there in place before it attends. On an int8 cache, every layer
-    but ``extract_layer`` attends through kernel K3 over the whole cache
-    with its layer index."""
-    _check_layer(extract_layer, cfg)
+    not listed in ``extract_layer`` attends through kernel K3 over the whole
+    cache with its layer index; the listed ones take the plain
+    ``_attn_quantcache``, which gives their probabilities rows."""
+    want = _check_layer(extract_layer, cfg)
     # one advanced-index write per cache tensor for per-slot positions (the
     # counterpart of JAX's serving/engine.py::_upd_slot)
     at = ((slice(None), cur_len) if isinstance(cur_len, int) else
           (torch.arange(token_embeds.shape[0], device=token_embeds.device), cur_len))
     x = token_embeds
-    row = None
+    rows = {}
     for i, lp in enumerate(params["layers"]):
         q, k1, v1 = _qkv(lp, cfg, x, cos, sin)
         append_token(kv, i, at, k1[:, 0], v1[:, 0])
-        if i != extract_layer:
+        if i not in want:
             attn = attend_cache(kv, i, q, kv_mask, cfg)
         elif isinstance(kv, QuantKVCache):
-            attn, row = _attn_quantcache(
+            attn, rows[i] = _attn_quantcache(
                 q, kv.k_q[i], kv.k_s[i], kv.v_q[i], kv.v_s[i],
                 kv_mask[:, None, :], cfg, want_probs=True)
         else:
-            attn, row = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
-                              want_probs=True)
+            attn, rows[i] = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
+                                  want_probs=True)
         x = layer_residuals(lp, cfg, x, attn)
-    return final_logits(params, cfg, x[:, 0]), kv, row
+    return final_logits(params, cfg, x[:, 0]), kv, _stack_rows(rows, extract_layer)
 
 
 def llama_decode_step(
@@ -389,7 +423,7 @@ def llama_decode_step(
     cur_len,                        # cache slot of the new token: int or (B,)
     positions: torch.Tensor,        # (B,) rope position of the new token
     kv_mask: torch.Tensor,          # (B, max_seq) bool incl. the new slot
-    extract_layer: Optional[int] = None,
+    extract_layer: ExtractSpec = None,
 ):
     """``decoder_decode_step`` at LLaMA's rotary ``positions``."""
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)

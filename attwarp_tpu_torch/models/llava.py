@@ -8,8 +8,10 @@ names (``{"vision": ..., "projector": ..., "llama": ...}``):
 random weights on the device from a seeded ``torch.Generator``.
 
 ``generate_with_attention`` is a Python decode loop with the JAX scan's
-semantics: the same EOS/PAD rule, and the extract layer's row accumulated
+semantics: the same EOS/PAD rule, and each extract layer's row accumulated
 at the prefill and at every decode step, finished rows included.
+``extract_layer`` is None (answer only), one layer, or a sequence of layers
+extracted in the same pass (``models/llama.py::extract_layers_tuple``).
 """
 
 from __future__ import annotations
@@ -22,9 +24,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_carry
+from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_layer_carry
 from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig, clip_vision_features
-from attwarp_tpu_torch.models.llama import LlamaConfig, llama_decode_step, llama_prefill
+from attwarp_tpu_torch.models.llama import (
+    ExtractSpec,
+    LlamaConfig,
+    llama_decode_step,
+    llama_prefill,
+)
 from attwarp_tpu_torch.numerics.quant import is_quantized
 
 
@@ -85,9 +92,10 @@ class LlavaModel:
 
     def forward_logits(self, input_ids: torch.Tensor, pixel_values: torch.Tensor,
                        attention_mask: Optional[torch.Tensor] = None,
-                       extract_layer: Optional[int] = None, use_flash: bool = False):
+                       extract_layer: ExtractSpec = None, use_flash: bool = False):
         """One prefill: (last-position logits (B, vocab) f32, the extract
-        layer's last-row attention or None)."""
+        rows: (B, H, T) for a layer, (L, B, H, T) for a sequence, or
+        None)."""
         if attention_mask is None:
             attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
                                         device=input_ids.device)
@@ -103,14 +111,17 @@ class LlavaModel:
         pixel_values: torch.Tensor,    # (B, S, S, 3) CLIP-normalized
         attention_mask: torch.Tensor,  # (B, T) bool
         img_start: torch.Tensor,       # (B,) image-token span starts
-        extract_layer: Optional[int] = 20,
+        extract_layer: ExtractSpec = 20,
         max_new_tokens: int = 20,
         kv_quant: bool = False,
         use_flash: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Greedy decode. Returns (generated ids (B, max_new_tokens), maps
-        (B, n, n) of the extract layer, or None when ``extract_layer`` is
-        None: the answer-only path that builds no probabilities row).
+        """Greedy decode. Returns (generated ids (B, max_new_tokens), maps):
+        (B, n, n) for one extract layer, (L, B, n, n) for a sequence of
+        layers (one accumulator each, in the spec's order), None when
+        ``extract_layer`` is None: the answer-only path that builds no
+        probabilities row. At ``max_new_tokens=0`` the maps are the
+        prefill's rows alone and no decode step runs.
 
         ``kv_quant`` keeps the cache in int8, rounded up to a multiple of 64
         slots as in JAX (the extra slots stay masked). ``use_flash`` runs
@@ -135,14 +146,13 @@ class LlavaModel:
             extract_layer=extract_layer, use_flash=use_flash, kv_quant=kv_quant,
         )
         del embeds
-        carry = None if extract_layer is None else init_carry(
-            B, n_img, device=input_ids.device)
+        carry = init_layer_carry(extract_layer, B, n_img, input_ids.device)
         carry = acc(carry, row0)
         tok = torch.argmax(logits, dim=-1)
         finished = tok == cfg.eos_token_id
         lengths = torch.sum(attention_mask.to(torch.int64), dim=1)
         full_mask = F.pad(attention_mask, (0, max_seq - T))
-        toks = []
+        toks = [tok.new_empty((B, 0))]
         for step in range(max_new_tokens):
             cur_len = T + step
             full_mask[:, cur_len] = True
@@ -154,14 +164,14 @@ class LlavaModel:
             # every step's row counts, finished rows included (HF generate
             # keeps forwarding them; llava.py:384-411)
             carry = acc(carry, row)
-            toks.append(tok)
+            toks.append(tok[:, None])
             nxt = torch.argmax(logits, dim=-1)
             # finished rows continue with PAD, as HF generate does
             nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
             finished = finished | (nxt == cfg.eos_token_id)
             tok = nxt
         maps = None if carry is None else finalize(carry, side)
-        return torch.stack(toks, dim=1), maps
+        return torch.cat(toks, dim=1), maps
 
 
 def config_from_dict(d: Dict[str, Any]) -> LlavaConfig:

@@ -37,8 +37,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_carry
-from attwarp_tpu_torch.models.llama import _rotate_half, decoder_decode_step, decoder_prefill
+from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_layer_carry
+from attwarp_tpu_torch.models.llama import (
+    ExtractSpec,
+    _rotate_half,
+    decoder_decode_step,
+    decoder_prefill,
+)
 
 
 # ── configs ─────────────────────────────────────────────────────────────
@@ -289,11 +294,12 @@ def mrope_cos_sin(positions: torch.Tensor, cfg: Qwen2VLTextConfig
 
 def qwen2vl_prefill(
     params, cfg: Qwen2VLTextConfig, inputs_embeds, attention_mask, cos, sin,
-    max_seq: int, extract_layer: Optional[int] = None, kv_quant: bool = False,
+    max_seq: int, extract_layer: ExtractSpec = None, kv_quant: bool = False,
     use_flash: bool = False,
 ):
-    """Returns (last logits (B, vocab) f32, the KV cache, the extract row
-    (B, H, T) or None): ``decoder_prefill`` at M-RoPE's ``cos``/``sin``.
+    """Returns (last logits (B, vocab) f32, the KV cache, the extract rows:
+    (B, H, T) for a layer, (L, B, H, T) for a sequence of layers, or None):
+    ``decoder_prefill`` at M-RoPE's ``cos``/``sin``.
     M-RoPE only changes the rotary tables applied to q and k before
     attention, so ``use_flash`` runs the same kernel K2 as LLaVA's prefill
     (JAX gate: 256 tokens and up)."""
@@ -303,12 +309,12 @@ def qwen2vl_prefill(
 
 def qwen2vl_decode_step(
     params, cfg: Qwen2VLTextConfig, token_embeds, kv, cur_len, cos, sin,
-    kv_mask, extract_layer: Optional[int] = None,
+    kv_mask, extract_layer: ExtractSpec = None,
 ):
     """One token against a dense or int8 cache (``decoder_decode_step``):
     written in place at ``cur_len`` (an int, or a (B,) tensor of per-slot
-    positions); on the int8 cache every layer but the
-    extract layer reads it through kernel K3 by layer index."""
+    positions); on the int8 cache every layer that ``extract_layer`` does
+    not list reads it through kernel K3 by layer index."""
     return decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
                                kv_mask, extract_layer)
 
@@ -344,20 +350,31 @@ class Qwen2VLModel:
     def device(self) -> torch.device:
         return self.params["text"]["embed_tokens"].device
 
+    def image_features(self, patches: torch.Tensor,
+                       grid_thw: Tuple[int, int, int]) -> torch.Tensor:
+        """The vision tower over ``patches``: (B, N, C*T*P*P) per-sample
+        images -> (B, N/M^2, D); (N, C*T*P*P), one image shared by the
+        batch, -> (N/M^2, D), the tower run once (the splice takes both)."""
+        vis = self.params["vision"]
+        hw = (grid_thw[1], grid_thw[2])
+        if patches.ndim == 2:
+            return qwen2vl_vision_features(vis, self.cfg.vision, patches[None], hw)[0]
+        return qwen2vl_vision_features(vis, self.cfg.vision, patches, hw)
+
     def forward_logits(self, input_ids: torch.Tensor, patches: torch.Tensor,
                        grid_thw: Tuple[int, int, int],
                        attention_mask: Optional[torch.Tensor] = None,
-                       extract_layer: Optional[int] = None, use_flash: bool = False):
-        """One prefill of per-sample images ``patches`` (B, N, C*T*P*P):
-        (last-position logits (B, vocab) f32, the extract layer's last-row
-        attention or None)."""
+                       extract_layer: ExtractSpec = None, use_flash: bool = False):
+        """One prefill of ``patches`` (B, N, C*T*P*P), or (N, C*T*P*P) for
+        one image shared by the batch: (last-position logits (B, vocab)
+        f32, the extract rows: (B, H, T) for a layer, (L, B, H, T) for a
+        sequence of layers, or None)."""
         if attention_mask is None:
             attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
                                         device=input_ids.device)
         dev = input_ids.device
-        feats = qwen2vl_vision_features(self.params["vision"], self.cfg.vision, patches,
-                                        (grid_thw[1], grid_thw[2]))
-        embeds = embed_and_splice(self.params, self.cfg, input_ids, feats)
+        embeds = embed_and_splice(self.params, self.cfg, input_ids,
+                                  self.image_features(patches, grid_thw))
         pos, _ = get_mrope_positions(input_ids.cpu().numpy(), attention_mask.cpu().numpy(),
                                      grid_thw, self.cfg.image_token_id,
                                      self.cfg.vision.spatial_merge_size)
@@ -370,17 +387,21 @@ class Qwen2VLModel:
     def generate_with_attention(
         self,
         input_ids: torch.Tensor,        # (B, T) expanded, left-padded
-        patches: torch.Tensor,          # (B, N, C*T*P*P) per-sample images
+        patches: torch.Tensor,          # (B, N, C*T*P*P) or one shared (N, C*T*P*P)
         grid_thw: Tuple[int, int, int],
         attention_mask: torch.Tensor,   # (B, T) bool
-        extract_layer: Optional[int] = 20,
+        extract_layer: ExtractSpec = 20,
         max_new_tokens: int = 20,
         kv_quant: bool = False,
         use_flash: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Greedy decode. Returns (generated ids (B, max_new_tokens), maps
-        (B, gh/M, gw/M) of the extract layer, or None when ``extract_layer``
-        is None: the answer-only path that builds no probabilities row).
+        """Greedy decode. Returns (generated ids (B, max_new_tokens), maps):
+        (B, gh/M, gw/M) for one extract layer, (L, B, gh/M, gw/M) for a
+        sequence of layers (in its order), None when ``extract_layer`` is
+        None: the answer-only path that builds no probabilities row.
+        ``patches`` of shape (N, C*T*P*P) is one image shared by the whole
+        batch: the vision tower runs once. At ``max_new_tokens=0`` the maps
+        are the prefill's rows alone and no decode step runs.
 
         As JAX's scan: every step's row counts (``active`` all ones), the
         decode position is ``T + rope_delta + step`` on all three M-RoPE
@@ -409,10 +430,7 @@ class Qwen2VLModel:
                 return None
             return accumulate_step(carry, row, img_start, ones, n_img)
 
-        feats = qwen2vl_vision_features(params["vision"], cfg.vision, patches,
-                                        (grid_thw[1], grid_thw[2]))
-        embeds = embed_and_splice(params, cfg, input_ids, feats)
-        del feats
+        embeds = embed_and_splice(params, cfg, input_ids, self.image_features(patches, grid_thw))
         cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), tcfg)
         logits, kv, row0 = qwen2vl_prefill(
             params["text"], tcfg, embeds, attention_mask, cos, sin,
@@ -420,12 +438,11 @@ class Qwen2VLModel:
             use_flash=use_flash,
         )
         del embeds, cos, sin
-        carry = None if extract_layer is None else init_carry(B, n_img, device=dev)
-        carry = acc(carry, row0)
+        carry = acc(init_layer_carry(extract_layer, B, n_img, dev), row0)
         tok = torch.argmax(logits, dim=-1)
         finished = tok == cfg.eos_token_id
         full_mask = F.pad(attention_mask, (0, max_seq - T))
-        toks = []
+        toks = [tok.new_empty((B, 0))]
         for step in range(max_new_tokens):
             cur_len = T + step
             full_mask[:, cur_len] = True
@@ -438,14 +455,14 @@ class Qwen2VLModel:
                 extract_layer=extract_layer,
             )
             carry = acc(carry, row)
-            toks.append(tok)
+            toks.append(tok[:, None])
             nxt = torch.argmax(logits, dim=-1)
             # finished rows continue with PAD, as HF generate does
             nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
             finished = finished | (nxt == cfg.eos_token_id)
             tok = nxt
         maps = None if carry is None else finalize(carry, side_h, side_w)
-        return torch.stack(toks, dim=1), maps
+        return torch.cat(toks, dim=1), maps
 
 
 def port_hf_qwen2vl_weights(state_dict: Dict[str, torch.Tensor], cfg: Qwen2VLConfig,

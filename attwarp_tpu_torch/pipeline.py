@@ -95,6 +95,8 @@ class AttWarpPipeline:
             resize_images_batch(arrs, size, dev), list(questions),
             max_new_tokens=self.max_new_tokens,
         )
+        if maps.ndim == 4:  # a sequence of extract layers: the first is primary
+            maps = maps[0]
 
         # mask + warp per (raw shape, scale, bucketed shape) group
         S = self.warp_size

@@ -112,8 +112,26 @@ NVIDIA GPU.
     ``+int8+kv8+flash`` load in int8 on the card, and at 7B width one
     ``extract`` through K2, K3 and the int8 product.
 
-The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 13a, 13b, 7, 8 (Qwen),
-13c, 9, 13d.
+14. Multi-layer extraction, the layer sweep and the mini test MLLM. 14a
+    (on step 6's weights, after 12b): the dataset driver on LLaVA-1.5-7B
+    ``+kv8+flash`` extracting layers (20, 4, 8, 12, 16) in one pass over
+    step 10's 16 scenes (batches of 8, 20 new tokens): every artifact and
+    five per-layer maps a sample, no fallback, K1 16, K2 2 x 32, K3 (32 -
+    5) x 20 x 2, layer 20's maps against step 10's (cos > 0.999), samples/s
+    beside step 10's. 14b: ``eval.layer_sweep`` over 8 of those scenes at
+    ``DEFAULT_LAYERS`` (one B=1 prefill a prompt for all nine layers): K2
+    32 x 2 x 8, K3 0, no fallback, scores in [0, 1], the one-pass maps
+    equal to a layer at a time (1e-6); K2 is timed at this shape in step
+    5. 14d: the mini through ``cli.process_dataset`` and ``cli.evaluate``
+    at their default backend on the card (K1 16), and its feature
+    extractor against its CPU copy (1e-4). 14c (after Qwen's serve runs):
+    Qwen2-VL-7B ``+kv8+flash`` extracting (20, 4, 12) at B=4 (K2 28, K3
+    (28 - 3) x 20), then one image's patches shared by 4 questions against
+    the image repeated (maps cos > 0.9999, tokens equal), its vision tower
+    timed in both forms.
+
+The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 13a, 13b,
+7, 8 (Qwen), 14c, 13c, 9, 13d.
 
 Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
@@ -725,12 +743,14 @@ def phase_k2(dev):
     out = {}
     # the pipeline's B=4 prefill at T=640, the serving engines' admission
     # groups (at most 8) at T=704, the dataset driver's B=8 extraction
-    # prefill at T=640, and a ragged T
+    # prefill at T=640, the layer sweep's B=1 prefill at T=640 (step 14b),
+    # and a ragged T
     for name, (B, T, H, kvH), timed in (("llava7b", (4, 640, 32, 32), True),
                                         ("qwen7b", (4, 640, 28, 4), True),
                                         ("llava7b_serve", (8, 704, 32, 32), True),
                                         ("qwen7b_serve", (8, 704, 28, 4), True),
                                         ("llava7b_dataset", (8, 640, 32, 32), True),
+                                        ("llava7b_sweep", (1, 640, 32, 32), True),
                                         ("ragged", (3, 200, 28, 4), False)):
         q, k, v, mask = _k2_case(dev, B, T, H, kvH, seed=8)
         got = flash_prefill(q, k, v, mask, sm)
@@ -1343,8 +1363,9 @@ def phase_llava_dataset(backend):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats = process_dataset(json_path, image_dir, str(root / "out"), timed,
-                            batch_size=8, max_new_tokens=20)
+    with _recording_tokens(backend.model) as tokens:
+        stats = process_dataset(json_path, image_dir, str(root / "out"), timed,
+                                batch_size=8, max_new_tokens=20)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     extract_s = timed.seconds["pass1"]
@@ -1396,7 +1417,8 @@ def phase_llava_dataset(backend):
     print(f"[10 llava dataset] first chunk's maps vs a direct extract: max|d| {d:.3g} "
           f"(tol 1e-6)")
     check(d <= 1e-6, "the driver's maps differ from a direct extract")
-    return launches
+    return launches, {"samples_s": 16 / wall, "extract_s": extract_s, "root": root,
+                      "tokens": torch.cat(tokens)}
 
 
 # the JAX learned-warp chain (tools/run_marginalnet_chain.py at its defaults;
@@ -1656,6 +1678,342 @@ def phase_codetag():
     check(res["overall_original_accuracy"] <= 0.02, "original accuracy above 0.02")
     check(abs(res["accuracy_gain"] - JAX_CODETAG_GAIN) <= 1 / 50 + 1e-9,
           f"accuracy gain more than one sample from the JAX chain's {JAX_CODETAG_GAIN}")
+    return launches
+
+
+# ── step 14: multi-layer extraction, the layer sweep and the mini ──────
+
+LAYERS_14A = (20, 4, 8, 12, 16)
+
+
+class _recording_tokens:
+    """Context that records the greedy tokens of every
+    ``generate_with_attention`` of ``model`` (on the host, in call order)."""
+
+    def __init__(self, model):
+        self.model, self.tokens = model, []
+
+    def __enter__(self):
+        inner = self.model.generate_with_attention
+
+        def generate(*args, **kwargs):
+            gen, maps = inner(*args, **kwargs)
+            self.tokens.append(gen.cpu())
+            return gen, maps
+        self.model.generate_with_attention = generate
+        return self.tokens
+
+    def __exit__(self, *exc):
+        del self.model.generate_with_attention
+        return False
+
+
+class _CountingBackend(TimedBackend):
+    """``TimedBackend`` that also records each ``extract`` call's batch size
+    (a batch that fell back to per-sample extraction shows as calls of 1)."""
+
+    def __init__(self, backend):
+        super().__init__(backend)
+        self.calls = []
+
+    def extract(self, images, questions, **kwargs):
+        self.calls.append(len(questions))
+        return super().extract(images, questions, **kwargs)
+
+
+def phase_llava_layers(backend, step10):
+    """14a: the dataset driver on LLaVA-1.5-7B ``+kv8+flash`` extracting
+    layers (20, 4, 8, 12, 16) in one pass (``--layer-index 20,4,8,12,16``)
+    over step 10's 16 code-tag scenes, batches of 8, 20 new tokens. Checks
+    every artifact and the five per-layer maps of each sample, that no
+    fallback fired (two batch calls of 8, no uniform map), K1 = 16, K2 =
+    32 x 2, K3 = (32 - 5) x 20 x 2, and layer 20's maps against step 10's
+    single-layer run: cos > 0.999 on every sample whose greedy tokens are
+    step 10's (the listed layers 4-16 leave K3 for the plain path, which
+    rounds bf16 otherwise, and on random weights a near-tie can turn a
+    sample's tokens, and so its later rows, another way), and on the first
+    batch at one new token, where no token can diverge."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.cli.process_dataset import parse_layer_spec, process_dataset
+    from attwarp_tpu_torch.data.imageio import read_rgb
+    from attwarp_tpu_torch.extract.resize import resize_images_batch
+    from attwarp_tpu_torch.testing.reader import write_textvqa_dataset
+
+    root = _scratch("llava_layers")
+    json_path, image_dir = write_textvqa_dataset(str(root / "data"), n=16, seed=0)
+    backend.kv_quant = backend.use_flash = True
+    # the layers as ``--layer-index 20,4,8,12,16`` gives them
+    backend.extract_layer = parse_layer_spec(",".join(map(str, LAYERS_14A)))
+    check(backend.extract_layer == LAYERS_14A, "14a: the layer list")
+    timed = _CountingBackend(backend)
+    counters = _counters()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording_tokens(backend.model) as tokens:
+            stats = process_dataset(json_path, image_dir, str(root / "out"), timed,
+                                    batch_size=8, max_new_tokens=20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        backend.extract_layer = 20
+    tokens = torch.cat(tokens)
+    L, n = backend.model.cfg.text.num_hidden_layers, len(LAYERS_14A)
+    want = {"warp_resample": 16, "flash_prefill": L * 2,
+            "decode_attn_int8": (L - n) * 20 * 2}
+    extract_s = timed.seconds["pass1"]
+    per_step = (extract_s - step10["extract_s"]) / (2 * 20) * 1e3
+    print(f"[14a llava layers] driver, layers {LAYERS_14A}: {stats['processed']} processed, "
+          f"{stats['failed']} failed, wall {wall:.3f} s ({16 / wall:.3f} samples/s; step 10, "
+          f"one layer: {step10['samples_s']:.3f}) | extraction {extract_s:.3f} s (step 10: "
+          f"{step10['extract_s']:.3f} s; {per_step:+.2f} ms a decode step over 2 x 20 steps) | "
+          f"extract calls {timed.calls}")
+    print("[14a llava layers] launches: " + ", ".join(
+        f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+    check(stats == {"processed": 16, "failed": 0}, "14a: 16 processed, 0 failed")
+    check(timed.calls == [8, 8], "14a: a batch fell back to per-sample extraction")
+    for name in counters:
+        check(launches[name] == want[name], f"14a: {name} launch count")
+    metas = _check_tree(root / "out", 16, 24)
+    d_max, cos_same, diverged = 0.0, [], []
+    same_tokens = [bool(torch.equal(a, b)) for a, b in zip(tokens, step10["tokens"])]
+    for m, same in zip(metas, same_tokens):
+        sid = m["sample_id"]
+        check(m["extract_layers"] == list(LAYERS_14A), f"{sid}: extract_layers")
+        per = m["saved_paths"]["raw_attention_maps_per_layer"]
+        check(sorted(per) == sorted(map(str, LAYERS_14A)), f"{sid}: per-layer paths")
+        maps = {}
+        for lid, path in per.items():
+            check(path == str(root / "out" / "raw_attention_maps" / f"{sid}_raw_attn_layer{lid}.npy"),
+                  f"{sid}: layer {lid} path")
+            maps[lid] = np.load(path)
+            check(maps[lid].shape == (1, 1, 24, 24) and bool(np.isfinite(maps[lid]).all())
+                  and not np.allclose(maps[lid], 1 / 576, rtol=0, atol=1e-9),
+                  f"{sid}: layer {lid} map")
+        primary = np.load(m["saved_paths"]["raw_attention_map_npy"])
+        check(np.array_equal(primary, maps["20"]), f"{sid}: the first layer is primary")
+        ref = np.load(step10["root"] / "out" / "raw_attention_maps" / f"{sid}_raw_attn.npy")
+        d_max = max(d_max, float(np.abs(primary - ref).max()))
+        c = _cos(torch.as_tensor(primary), torch.as_tensor(ref))
+        (cos_same if same else diverged).append(c)
+    print(f"[14a llava layers] layer 20 vs step 10's single-layer maps: max|d| {d_max:.4g}; "
+          f"{len(cos_same)} samples with step 10's greedy tokens, min cos "
+          f"{min(cos_same, default=float('nan')):.6f} (bar > 0.999); {len(diverged)} whose "
+          f"tokens diverged (a near-tie on random weights), cos "
+          + " ".join(f"{c:.6f}" for c in diverged))
+    check(len(cos_same) > 0 and min(cos_same) > 0.999,
+          "14a: layer 20's maps drift from step 10's on the same tokens")
+
+    # one decode step, where the tokens cannot diverge: the plain path of
+    # the listed layers against K3 is bf16 rounding alone
+    first = metas[:8]
+    pix = resize_images_batch([read_rgb(m["saved_paths"]["original_image"]) for m in first],
+                              backend.image_size, backend.device)
+    qs = [m["question"] for m in first]
+    one, _ = backend.extract(pix, qs, max_new_tokens=1)
+    try:
+        backend.extract_layer = LAYERS_14A
+        five, _ = backend.extract(pix, qs, max_new_tokens=1)
+    finally:
+        backend.extract_layer = 20
+    c1 = min(_cos(a, b) for a, b in zip(one.float(), five[0].float()))
+    print(f"[14a llava layers] one new token, first batch: layer 20 alone vs among five, min "
+          f"cos {c1:.6f} (bar > 0.999)")
+    check(c1 > 0.999, "14a: the listed layers' plain path moves layer 20's one-step maps")
+    return launches, root
+
+
+def phase_llava_sweep(backend, data_root):
+    """14b: ``eval.layer_sweep.layer_sweep`` at LLaVA-1.5-7B width
+    (``+kv8+flash``) over 8 of 14a's code-tag scenes, ``DEFAULT_LAYERS``,
+    each scene's tag box (``tag_box_yxs``: y, x, size) as xywh. One prefill
+    a prompt for all nine layers: K2 = 32 x 2 x 8, K3 = 0, no fallback;
+    every score finite and in [0, 1]; the one-pass maps of layers 4 and 20
+    equal ``_extract_at_layer``'s (1e-6)."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.data.imageio import read_rgb
+    from attwarp_tpu_torch.eval import layer_sweep as ls
+
+    with open(data_root / "data" / "codetag_val.json") as f:
+        data = json.load(f)["data"][:8]
+    samples = []
+    for d in data:
+        y, x, size = d["tag_box_yxs"]
+        samples.append({"image": read_rgb(str(data_root / "data" / "images" /
+                                              f"{d['image_id']}.jpg")),
+                        "question": d["question"], "bbox": (x, y, size, size)})
+    ids = [backend._prepare(samples[0]["image"][None], [q])[0] for q in
+           (samples[0]["question"], ls.GENERIC_PROMPT)]
+    T = {int(i.shape[1]) for i in ids}
+    check(T == {640}, f"14b: prompts of {T} tokens (K2's sweep row is timed at T=640)")
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    ls._extract_all_layers.fallbacks = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = ls.layer_sweep(backend, samples, layers=ls.DEFAULT_LAYERS,
+                             out_dir=str(_scratch("llava_sweep")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = backend.model.cfg.text.num_hidden_layers
+    want = {"warp_resample": 0, "flash_prefill": L * 2 * 8, "decode_attn_int8": 0}
+    print(f"[14b llava sweep] {len(ls.DEFAULT_LAYERS)} layers x 8 scenes, prompts T=640, B=1: "
+          f"wall {wall:.3f} s ({wall / 16 * 1e3:.1f} ms a prompt), fallbacks "
+          f"{ls._extract_all_layers.fallbacks} | launches " + ", ".join(
+              f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+    print("[14b llava sweep] " + "; ".join(
+        f"{k} top1 {v['top1']:.3f} am {v['am_all']:.4f}" for k, v in summary.items()
+        if k.startswith("absolute")) + " (random weights: plumbing only)")
+    check(ls._extract_all_layers.fallbacks == 0, "14b: the one-pass extraction fell back")
+    for name in counters:
+        check(launches[name] == want[name], f"14b: {name} launch count")
+    check(len(summary) == 2 * len(ls.DEFAULT_LAYERS)
+          and all(v["n"] == 8 for v in summary.values()), "14b: summary rows")
+    check(all(np.isfinite(v[k]) and 0.0 <= v[k] <= 1.0 for v in summary.values()
+              for k in ("top1", "am_all")), "14b: a score not finite or outside [0, 1]")
+    s0 = samples[0]
+    one = ls._extract_all_layers(backend, s0["image"][None], [s0["question"]], ls.DEFAULT_LAYERS)
+    for layer in (4, 20):
+        single = ls._extract_at_layer(backend, s0["image"][None], [s0["question"]], layer)
+        d = float(np.abs(one[layer] - single).max())
+        print(f"[14b llava sweep] one pass vs _extract_at_layer at layer {layer}: max|d| {d:.3g} "
+              f"(tol 1e-6)")
+        check(d <= 1e-6, f"14b: the one-pass map of layer {layer} differs")
+    return launches
+
+
+def phase_qwen_layers(inner):
+    """14c: Qwen2-VL-7B ``+kv8+flash`` at 672 px on step 7's weights:
+    ``extract_layer=(20, 4, 12)`` at B=4 (K2 = 28, K3 = (28 - 3) x 20);
+    then one image's (N, D) patches shared by 4 questions against the same
+    image repeated per sample: maps cos > 0.9999, greedy tokens equal; the
+    vision tower timed in both forms."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.extract.resize import resize_images_batch
+
+    images = _images()
+    pix = resize_images_batch(images, inner.image_size, inner.device)
+    counters = _counters()
+    old = inner.extract_layer
+    try:
+        inner.extract_layer = (20, 4, 12)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps, texts = inner.extract(pix, QUESTIONS, max_new_tokens=20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        inner.extract_layer = old
+    L = inner.model.cfg.text.num_hidden_layers
+    want = {"warp_resample": 0, "flash_prefill": L, "decode_attn_int8": (L - 3) * 20}
+    m = maps.float().cpu().numpy()
+    print(f"[14c qwen layers] extract (20, 4, 12), B=4, 20 new tokens: maps {m.shape}, wall "
+          f"{wall:.3f} s | launches " + ", ".join(
+              f"{name} {launches[name]} (expected {want[name]})" for name in counters))
+    check(m.shape == (3, 4, 24, 24) and bool(np.isfinite(m).all())
+          and np.allclose(m.sum(axis=(2, 3)), 1.0, atol=1e-3), "14c: maps")
+    for name in counters:
+        check(launches[name] == want[name], f"14c: {name} launch count")
+
+    model = inner.model
+    ids, mask, patches, grid = inner._prepare(resize_images_batch([images[0]] * 4,
+                                                                  inner.image_size, inner.device),
+                                              QUESTIONS)
+    check(bool((patches == patches[:1]).all()), "14c: the repeated patches are one image's")
+    shared = patches[0].contiguous()
+    kw = dict(extract_layer=(20, 4, 12), max_new_tokens=20, kv_quant=True, use_flash=True)
+    with torch.no_grad():
+        g_rep, m_rep = model.generate_with_attention(ids, patches, grid, mask, **kw)
+        g_one, m_one = model.generate_with_attention(ids, shared, grid, mask, **kw)
+        t_rep = cuda_ms(lambda: model.image_features(patches, grid), 3)
+        t_one = cuda_ms(lambda: model.image_features(shared, grid), 3)
+    cos = min(_cos(a, b) for a, b in zip(m_one.reshape(12, -1), m_rep.reshape(12, -1)))
+    same = bool(torch.equal(g_one, g_rep))
+    print(f"[14c qwen layers] one image shared by 4 questions vs repeated: maps min cos "
+          f"{cos:.6f} (bar > 0.9999), greedy tokens equal {same} | vision tower "
+          f"{t_one:.2f} ms shared vs {t_rep:.2f} ms for 4 copies")
+    check(cos > 0.9999, "14c: shared-image maps differ from the repeated image's")
+    check(same, "14c: shared-image tokens differ from the repeated image's")
+    return launches
+
+
+def phase_mini(dev):
+    """14d: the mini test MLLM at the CLIs' defaults on the card:
+    ``cli.process_dataset.main`` with no ``--backend`` over step 10's 16
+    code-tag scenes (K1 = 16, 0 failed, every artifact), then
+    ``cli.evaluate.main`` with no ``--model``; ``MiniFeatureExtractor`` on
+    the card against its CPU copy on the same weights (1e-4)."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.cli import evaluate, process_dataset
+    from attwarp_tpu_torch.extract.extraction import MiniLLaVABackend
+    from attwarp_tpu_torch.extract.features import MiniFeatureExtractor
+    from attwarp_tpu_torch.testing.reader import write_textvqa_dataset
+
+    root = _scratch("mini")
+    json_path, image_dir = write_textvqa_dataset(str(root / "data"), n=16, seed=0)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = process_dataset.main(["--textvqa-json", json_path, "--image-dir", image_dir,
+                               "--output-dir", str(root / "out"), "--batch-size", "8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {"warp_resample": 16, "flash_prefill": 0, "decode_attn_int8": 0}
+    t0 = time.perf_counter()
+    rc_eval = evaluate.main(["--metadata-dir", str(root / "out" / "metadata"),
+                             "--output-dir", str(root / "eval"), "--score-original",
+                             "--max-new-tokens", "16"])
+    eval_wall = time.perf_counter() - t0
+    res = _result_json(root / "eval")
+    print(f"[14d mini] cli.process_dataset (default backend): rc {rc}, wall {wall:.3f} s "
+          f"({16 / wall:.3f} samples/s) | launches " + ", ".join(
+              f"{name} {launches[name]} (expected {want[name]})" for name in counters)
+          + f" | cli.evaluate (default model): rc {rc_eval}, {res['total_samples_evaluated']} "
+          f"evaluated, wall {eval_wall:.3f} s")
+    check(rc == 0 and rc_eval == 0, "14d: a CLI failed")
+    metas = _check_tree(root / "out", 16, 24)
+    check(all(m["api_model_name"] == "mini-llava" for m in metas), "14d: the mini backend ran")
+    check(res["total_samples_evaluated"] == 16, "14d: 16 evaluated")
+    for name in counters:
+        check(launches[name] == want[name], f"14d: {name} launch count")
+
+    card = MiniFeatureExtractor(MiniLLaVABackend(device=dev, seed=0))
+    tree = card.backend.params
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.cpu()
+    host = MiniFeatureExtractor(MiniLLaVABackend(card.cfg, device="cpu", params=to_cpu(tree)))
+    imgs = np.stack([im[:480, :480] for im in _images()]).astype(np.float32) / 255.0
+    d_vis = float((card.visual_tokens(imgs).cpu() - host.visual_tokens(imgs)).abs().max())
+    (e_c, m_c), (e_h, m_h) = card.text_tokens(QUESTIONS), host.text_tokens(QUESTIONS)
+    d_txt = float((e_c.cpu() - e_h).abs().max())
+    print(f"[14d mini] MiniFeatureExtractor on the card vs the CPU: visual_tokens max|d| "
+          f"{d_vis:.3g}, text_tokens max|d| {d_txt:.3g} (tol 1e-4)")
+    check(d_vis <= 1e-4 and d_txt <= 1e-4 and torch.equal(m_c.cpu(), m_h),
+          "14d: MiniFeatureExtractor differs between the card and the CPU")
     return launches
 
 
@@ -2118,12 +2476,16 @@ def main(argv=None) -> int:
     paths["llava"], backend, base6 = _phase("6 llava", phase_slice, dev)
     paths["llava_serve"], paths["llava_chunked"], base8 = _phase(
         "8 llava serve", phase_llava_serve, backend)
-    paths["llava_dataset"] = _phase("10 llava dataset", phase_llava_dataset, backend)
+    paths["llava_dataset"], step10 = _phase("10 llava dataset", phase_llava_dataset, backend)
     paths["codetag"] = _phase("11 codetag", phase_codetag)
     paths["marginalnet_chain"], meta_dir = _phase("12a marginalnet chain",
                                                   phase_marginalnet_chain)
     paths["marginalnet_train"] = _phase("12b marginalnet train", phase_marginalnet_train,
                                         backend, meta_dir)
+    paths["llava_layers"], layers_root = _phase("14a llava layers", phase_llava_layers,
+                                                backend, step10)
+    paths["llava_sweep"] = _phase("14b llava sweep", phase_llava_sweep, backend, layers_root)
+    paths["mini_dataset"] = _phase("14d mini", phase_mini, dev)
     gc.collect()
     torch.cuda.empty_cache()
     int8 = _phase("13a int8 product", phase_int8_matmul, dev)
@@ -2133,6 +2495,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["qwen"], backend, base7 = _phase("7 qwen", phase_qwen, dev)
     paths["qwen_serve"] = _phase("8 qwen serve", phase_qwen_serve, backend)
+    paths["qwen_layers"] = _phase("14c qwen layers", phase_qwen_layers, backend)
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(_phase("13c qwen int8", phase_qwen_int8, backend, base7))
@@ -2159,7 +2522,7 @@ def main(argv=None) -> int:
          "replaces": "attwarp_tpu/models/llama.py:218",
          **launches("flash_prefill"), **k2["qwen7b"],
          **{k: k2[k] for k in ("llava7b", "llava7b_serve", "qwen7b_serve",
-                               "llava7b_dataset")}},
+                               "llava7b_dataset", "llava7b_sweep")}},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/decode_attn_int8.cu",
          "replaces": "attwarp_tpu/ops/pallas_decode_attn.py:284",

@@ -578,8 +578,7 @@ def test_process_dataset_cli_main(tmp_path, capsys):
     assert "Done. processed=2 failed=0" in capsys.readouterr().out
     assert len(os.listdir(os.path.join(out, "warped_images"))) == 2
     assert pd.build_parser().parse_args(args + ["--backend", "reader"]).device == "cuda"
-    with pytest.raises(SystemExit):                   # --backend is required
-        pd.build_parser().parse_args(args)
+    assert pd.build_parser().parse_args(args).backend == "mini"   # JAX's default
     if not torch.cuda.is_available():                 # no silent fall back to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pd.main(args[:5] + [str(tmp_path / "out2")] + args[6:] + ["--backend", "reader"])

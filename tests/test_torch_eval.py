@@ -219,8 +219,7 @@ def test_evaluate_cli_main(metadata, tmp_path, capsys, models):  # noqa: F811
     assert f"Overall Warped Accuracy: {res['overall_warped_accuracy']:.4f} (11 samples)" in printed
     assert f"Gain: {res['accuracy_gain']:+.4f}" in printed
     assert ev.build_parser().parse_args(args + ["--model", "reader"]).device == "cuda"
-    with pytest.raises(SystemExit):                     # --model is required
-        ev.build_parser().parse_args(args)
+    assert ev.build_parser().parse_args(args).model == "mini"      # JAX's default
     with pytest.raises(SystemExit, match="no serving path"):
         ev.main(args + ["--model", "reader", "--device", "cpu", "--serve-slots", "2"])
     # a checkpoint carries its tokenizer, so the CLI answers with it

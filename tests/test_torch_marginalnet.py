@@ -387,11 +387,11 @@ def test_qwen2vl_feature_extractor_matches_jax(rng):
 
 
 def test_make_feature_extractor_refuses_mini_and_unknown():
-    from attwarp_tpu_torch.extract.features import make_feature_extractor
+    from attwarp_tpu_torch.extract.features import MiniFeatureExtractor, make_feature_extractor
     from attwarp_tpu_torch.train.config import TrainConfig
 
-    with pytest.raises(ValueError, match="item 6"):
-        make_feature_extractor(TrainConfig(), "cpu")
+    # the default, mini, is ported: it builds the mini's extractor
+    assert isinstance(make_feature_extractor(TrainConfig(), "cpu"), MiniFeatureExtractor)
     with pytest.raises(ValueError, match="unknown"):
         make_feature_extractor(TrainConfig(mllm_backend="nope"), "cpu")
 

@@ -499,14 +499,14 @@ def test_make_backend_grammar(llava, qwen, tmp_path):
     be = make_backend(f"qwen2vl-ckpt:{tmp_path}/q+kv8", 1, "cpu")
     assert isinstance(be, Qwen2VLBackend) and be.kv_quant and not be.use_flash
     assert be.extract_layer == 1
-    for spec, item in (("mini", "item 6"), ("mini+int8", "item 6"),
-                       (f"llava-ckpt:{tmp_path}/l+kv8", "item 4"),
+    for spec, item in (("mini", "extracts one layer"), ("mini+int8", "no int8 serving path"),
                        ("reader+kv8", "no int8 KV-cache path"),
                        ("reader+int8", "no int8 serving path"),
                        ("reader+lm8", "no int8 LM-head path"),
                        ("nonsense", "unknown")):
         with pytest.raises(ValueError, match=item):
-            make_backend(spec, "0,1" if "item 4" in item else 0, "cpu")
+            make_backend(spec, "0,1" if spec == "mini" else 0, "cpu")
+    assert make_backend(f"llava-ckpt:{tmp_path}/l+kv8", "0,1", "cpu").extract_layer == (0, 1)
     assert type(make_backend("reader", 20, "cpu")).__name__ == "ReaderBackend"
 
 

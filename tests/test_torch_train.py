@@ -462,8 +462,9 @@ def test_train_cli_on_a_llava_checkpoint(full_roots, tmp_path, monkeypatch):
 def test_warp_cli_matches_jax(tmp_path, monkeypatch):
     """The same ``run_N`` directory and files as JAX's ``cli/warp.py`` on
     the same image and map: the warped image within 1 uint8 LSB, the
-    original equal; ``--backend mini`` is refused before anything is
-    written, and the reader answers on the warped image."""
+    original equal; a backend spec that does not load fails before anything
+    is written, and the default mini and the reader answer on the warped
+    image."""
     from attwarp_tpu.cli import warp as j_warp_cli
 
     from attwarp_tpu_torch.cli import warp as t_warp_cli
@@ -487,10 +488,13 @@ def test_warp_cli_matches_jax(tmp_path, monkeypatch):
         b = np.asarray(Image.open(jd / name)).astype(int)
         assert a.shape == b.shape
         assert np.abs(a - b).max() <= (0 if name == "original_image.png" else 1), name
-    with pytest.raises(ValueError, match="item 6"):
+    with pytest.raises(ValueError, match="unknown"):
         t_warp_cli.main(common + ["--output-dir", str(tmp_path / "m"), "--device", "cpu",
-                                  "--second-pass", "--question", "q?"])
+                                  "--second-pass", "--question", "q?", "--backend", "nonsense"])
     assert not (tmp_path / "m").exists()
+    assert t_warp_cli.main(common + ["--output-dir", str(tmp_path / "m"), "--device", "cpu",
+                                     "--second-pass", "--question", "q?"]) == 0
+    assert (tmp_path / "m" / "run_0" / "warped.png").exists()
     assert t_warp_cli.main(common + ["--output-dir", str(tmp_path / "t"), "--device", "cpu",
                                      "--second-pass", "--question", "q?",
                                      "--backend", "reader"]) == 0
