@@ -1,8 +1,15 @@
 """MarginalNet training CLI (counterpart of ``attwarp_tpu/cli/train.py``).
 
 Flag parity with ``cli.py:10-58`` and the JAX CLI, plus ``--device``
-(default ``cuda``; ``--cpu`` is its alias for ``--device cpu``). The mesh
-flags are accepted and kept in the config; the port trains on one device.
+(default ``cuda``; ``--cpu`` is its alias for ``--device cpu``). Launched
+by ``torchrun`` (``WORLD_SIZE`` > 1), each process joins the process group
+(NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU) and ``--mesh-data``/
+``--mesh-model`` lay the ranks out (``train/trainer.py``'s multi-device
+branch):
+
+    torchrun --nproc-per-node 4 -m attwarp_tpu_torch.cli.train \
+        --mesh-data 2 --mesh-model 2 ...
+
 ``--mllm-backend`` defaults to ``mini`` (``TrainConfig().mllm_backend``, the
 test MLLM's features), as in JAX; ``llava``/``qwen2vl`` read
 ``--mllm-model`` as a port checkpoint directory (the backends' ``save``) or
@@ -15,6 +22,7 @@ an HF checkpoint.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -49,9 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=d.seed)
 
     p.add_argument("--mesh-data", type=int, default=None,
-                   help="data-parallel axis size (kept in the config; one device)")
+                   help="data-parallel axis size (default: world size / --mesh-model)")
     p.add_argument("--mesh-model", type=int, default=d.mesh_model,
-                   help="tensor-parallel axis size (kept in the config; one device)")
+                   help="tensor-parallel axis size over the torchrun ranks")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoints/ dir of a previous run to resume from")
     p.add_argument("--data-pipeline", type=str, default=d.data_pipeline,
@@ -92,6 +100,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     from attwarp_tpu_torch.train.trainer import train_loop
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        import torch
+        import torch.distributed as dist
+
+        from attwarp_tpu_torch.parallel.mesh import init_ranks
+
+        if torch.device(device).type == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+            torch.cuda.set_device(device)
+        init_ranks("nccl" if torch.device(device).type == "cuda" else "gloo")
+        try:
+            train_loop(cfg, resume_from=args.resume, device=device)
+        finally:
+            dist.destroy_process_group()
+        return 0
     train_loop(cfg, resume_from=args.resume, device=device)
     return 0
 

@@ -18,11 +18,12 @@ from __future__ import annotations
 import queue
 import random
 import threading
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from attwarp_tpu_torch.data.manifests import load_gqa_transform_map, transform_for_sample
+from attwarp_tpu_torch.parallel.mesh import current_mesh
 
 
 def collate(items: Sequence[Dict]) -> Dict:
@@ -52,6 +53,23 @@ def split_indices(n: int, val_frac: float, seed: int):
     random.Random(seed).shuffle(idx)
     n_val = n - int((1.0 - val_frac) * n)
     return idx[: n - n_val], idx[n - n_val :]
+
+
+def host_local_indices(
+    indices: Sequence[int],
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+) -> List[int]:
+    """Input sharding: each process reads a disjoint strided slice of the
+    index list. One process feeds one device, so the defaults are this
+    rank's index on the ``data`` axis and that axis's size (of the mesh
+    ``parallel/mesh.py::make_mesh`` built last; 0 and 1 without one)."""
+    if process_index is None or process_count is None:
+        mesh = current_mesh()
+        pi, pc = (0, 1) if mesh is None else (mesh.data.rank, mesh.data.size)
+        process_index = pi if process_index is None else process_index
+        process_count = pc if process_count is None else process_count
+    return list(indices)[process_index::process_count]
 
 
 def _order(indices: Sequence[int], shuffle: bool, seed: int) -> List[int]:

@@ -6,7 +6,9 @@ HF ``CLIPVisionModel`` as LLaVA-1.5 uses it (openai/clip-vit-large-patch14-
 blocks with QuickGELU, hidden states tapped at ``feature_layer``. The patch
 embedding stays an unfold plus a matmul with the JAX ``patch_weight``
 layout ``(hidden, P*P*3)``: no convolution, so cuDNN's TF32 default never
-applies. Parameters are the JAX tree's names, as tensors.
+applies. Parameters are the JAX tree's names, as tensors; a tensor-parallel
+rank's tree (``parallel/llava_sharding.py``) holds its heads and FFN slice,
+and the row-parallel ``out_proj``/``fc2`` sum over the ``model`` axis.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from attwarp_tpu_torch.numerics.quant import row_linear
+from attwarp_tpu_torch.parallel.comm import all_gather, split_group
 
 
 @dataclass(frozen=True)
@@ -63,19 +68,26 @@ def _lin(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return x @ p["weight"].T + p["bias"]
 
 
+def _row(x: torch.Tensor, p: Dict[str, torch.Tensor], group) -> torch.Tensor:
+    """``_lin`` of a row-parallel linear on a tensor-parallel rank
+    (``numerics/quant.py::row_linear``), ``_lin`` itself otherwise."""
+    return _lin(x, p) if group is None else row_linear(x, p, group)
+
+
 def _block(lp: Dict[str, Any], cfg: ClipVisionConfig, x: torch.Tensor) -> torch.Tensor:
     B, T, D = x.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
     h = _ln(x, lp["layer_norm1"], cfg.layer_norm_eps)
-    q = _lin(h, lp["q_proj"]).reshape(B, T, nh, hd)
-    k = _lin(h, lp["k_proj"]).reshape(B, T, nh, hd)
-    v = _lin(h, lp["v_proj"]).reshape(B, T, nh, hd)
+    q = _lin(h, lp["q_proj"]).reshape(B, T, -1, hd)
+    k = _lin(h, lp["k_proj"]).reshape(B, T, -1, hd)
+    v = _lin(h, lp["v_proj"]).reshape(B, T, -1, hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
     probs = torch.softmax(logits * (1.0 / math.sqrt(hd)), dim=-1).to(x.dtype)
-    attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
-    x = x + _lin(attn, lp["out_proj"])
+    attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, -1)
+    x = x + _row(attn, lp["out_proj"], split_group(lp, "attn"))
     h2 = _ln(x, lp["layer_norm2"], cfg.layer_norm_eps)
-    return x + _lin(_act(_lin(h2, lp["fc1"]), cfg.hidden_act), lp["fc2"])
+    return x + _row(_act(_lin(h2, lp["fc1"]), cfg.hidden_act), lp["fc2"],
+                    split_group(lp, "mlp"))
 
 
 def clip_vision_features(
@@ -94,7 +106,8 @@ def clip_vision_features(
     x = pixel_values.to(params["patch_weight"].dtype)
     x = x.reshape(B, n, P, n, P, 3).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(B, n * n, P * P * 3)
-    patches = x @ params["patch_weight"].T   # (B, n*n, hidden); no bias
+    patches = all_gather(x @ params["patch_weight"].T,   # (B, n*n, hidden); no bias
+                         split_group(params, "patch"), -1)
     cls = params["class_embedding"].expand(B, 1, cfg.hidden_size)
     h = torch.cat([cls, patches], dim=1) + params["position_embedding"][None]
     h = _ln(h, params["pre_layrnorm"], cfg.layer_norm_eps)

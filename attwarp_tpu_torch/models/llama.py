@@ -21,6 +21,14 @@ K3 (``kernels/decode_attn.py``); a listed layer keeps the plain
 ``extract_layer`` is None, a layer or a sequence of layers
 (``extract_layers_tuple``), whose rows come back stacked in its order.
 
+A tensor-parallel rank's tree (``parallel/llava_sharding.py``) carries a
+``parallel/comm.py::ModelShard`` under ``"tp"``: the head counts come from
+the tensors, the cache holds the rank's kv heads (``local_kv_heads``), the
+attention and MLP outputs are summed over the ``model`` axis
+(``numerics/quant.py::row_linear``), ``embed`` looks the vocabulary up per
+shard and the extract rows and logits are gathered. A tree without it runs
+with no collective.
+
 The decode step writes the new token's K/V into the cache IN PLACE and then
 reads the updated layer plane, which is a view and costs no copy. The JAX
 step instead read the step-entry cache, merged the token inside the kernel
@@ -41,7 +49,8 @@ import torch.nn.functional as F
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
-from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv
+from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv, row_linear
+from attwarp_tpu_torch.parallel.comm import all_gather, all_reduce, split_group
 
 
 @dataclass(frozen=True)
@@ -81,16 +90,23 @@ class QuantKVCache(NamedTuple):
     v_s: torch.Tensor
 
 
+def local_kv_heads(params: Dict[str, Any], cfg: LlamaConfig) -> int:
+    """The kv heads a decoder tree holds: all of them, or on a
+    tensor-parallel rank the ones its query heads read."""
+    shard = params.get("tp")
+    return cfg.kv_heads if shard is None else shard.kv_heads
+
+
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int, dtype,
-                  device) -> LlamaKVCache:
-    shape = (cfg.num_hidden_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+                  device, kv_heads: Optional[int] = None) -> LlamaKVCache:
+    shape = (cfg.num_hidden_layers, batch, max_seq, kv_heads or cfg.kv_heads, cfg.head_dim)
     return LlamaKVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_quant_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
-                        device) -> QuantKVCache:
-    shape = (cfg.num_hidden_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+                        device, kv_heads: Optional[int] = None) -> QuantKVCache:
+    shape = (cfg.num_hidden_layers, batch, max_seq, kv_heads or cfg.kv_heads, cfg.head_dim)
 
     def values():
         return torch.zeros(shape, dtype=torch.int8, device=device)
@@ -140,8 +156,9 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def _attn(q, k, v, mask, cfg: LlamaConfig, want_probs: bool):
     """q (B,Tq,H,hd), k/v (B,Tk,kvH,hd), mask (B,Tq,Tk) bool. The q.k
-    product rounds to q's dtype before the f32 softmax, as in JAX."""
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    product rounds to q's dtype before the f32 softmax, as in JAX. The head
+    counts are the tensors' (a tensor-parallel rank's are its own)."""
+    n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
@@ -151,7 +168,7 @@ def _attn(q, k, v, mask, cfg: LlamaConfig, want_probs: bool):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     B, Tq = out.shape[0], out.shape[1]
-    return (out.reshape(B, Tq, cfg.hidden_size),
+    return (out.reshape(B, Tq, -1),
             probs[:, :, -1, :] if want_probs else None)
 
 
@@ -180,7 +197,7 @@ def _flash_attn(q, k, v, attention_mask, cfg):
 def _last_row_probs(q_last, k, mask_last, cfg):
     """Post-softmax attention of the last query position only: (B, H, T),
     O(B*H*T). q_last (B,H,hd), k (B,T,kvH,hd), mask_last (B,T) bool."""
-    k = _repeat_kv(k, cfg.num_attention_heads // cfg.kv_heads)
+    k = _repeat_kv(k, q_last.shape[1] // k.shape[2])
     logits = torch.einsum("bhd,bkhd->bhk", q_last, k).to(torch.float32)
     logits = logits * (1.0 / math.sqrt(cfg.head_dim))
     logits = logits.masked_fill(~mask_last[:, None, :], torch.finfo(torch.float32).min)
@@ -193,7 +210,7 @@ def _attn_quantcache(q, k_q, k_s, v_q, v_s, mask, cfg: LlamaConfig,
     of the dots: ``scores = (q . k_q) * k_s``, ``out = (probs * v_s) .
     v_q``. q (B,1,H,hd); k_q/v_q (B,S,kvH,hd) int8; k_s/v_s (B,S,kvH) f32;
     mask (B,1,S) bool."""
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    n_rep = q.shape[2] // k_q.shape[2]
     k_q = _repeat_kv(k_q, n_rep)
     v_q = _repeat_kv(v_q, n_rep)
     k_s = _repeat_kv(k_s, n_rep)                  # (B, S, H)
@@ -207,15 +224,15 @@ def _attn_quantcache(q, k_q, k_s, v_q, v_s, mask, cfg: LlamaConfig,
     pv = probs * v_s.permute(0, 2, 1)[:, :, None, :]
     out = torch.einsum("bhqk,bkhd->bqhd", pv.to(q.dtype), v_q.to(q.dtype))
     B, Tq = out.shape[0], out.shape[1]
-    return (out.reshape(B, Tq, cfg.hidden_size),
+    return (out.reshape(B, Tq, -1),
             probs[:, :, -1, :] if want_probs else None)
 
 
 def _mlp(lp: Dict[str, Any], cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     h2 = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return apply_linear(
+    return row_linear(
         F.silu(apply_linear(h2, lp["gate_proj"])) * apply_linear(h2, lp["up_proj"]),
-        lp["down_proj"],
+        lp["down_proj"], split_group(lp, "mlp"),
     )
 
 
@@ -227,8 +244,10 @@ def layer_project(lp: Dict[str, Any], cfg: LlamaConfig, x):
 
 
 def layer_residuals(lp: Dict[str, Any], cfg: LlamaConfig, x, attn):
-    """A decoder layer after its attention: the o_proj and MLP residuals."""
-    x = x + apply_linear(attn, lp["o_proj"])
+    """A decoder layer after its attention: the o_proj and MLP residuals
+    (on a tensor-parallel rank each a row-parallel linear, summed over the
+    ``model`` axis)."""
+    x = x + row_linear(attn, lp["o_proj"], split_group(lp, "attn"))
     return x + _mlp(lp, cfg, x)
 
 
@@ -240,9 +259,9 @@ def final_logits(params: Dict[str, Any], cfg: LlamaConfig, x) -> torch.Tensor:
 def _qkv(lp: Dict[str, Any], cfg: LlamaConfig, x, cos, sin):
     B, T, _ = x.shape
     q, k, v = layer_project(lp, cfg, x)
-    q = q.reshape(B, T, cfg.num_attention_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, -1, cfg.head_dim)
+    k = k.reshape(B, T, -1, cfg.head_dim)
+    v = v.reshape(B, T, -1, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
@@ -272,11 +291,29 @@ def _check_layer(extract_layer: ExtractSpec, cfg: LlamaConfig) -> Tuple[int, ...
     return want
 
 
-def _stack_rows(rows: Dict[int, torch.Tensor], extract_layer: ExtractSpec):
+def embed(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
+    """The token embeddings of ``ids``. On a vocabulary-parallel rank each
+    rank looks up the ids in its rows, zeros elsewhere, and the ranks' rows
+    are summed (an id lies in one shard, so the sum is exact)."""
+    w = params["embed_tokens"]
+    group = split_group(params, "vocab")
+    if group is None:
+        return w[ids]
+    local = ids - group.rank * w.shape[0]
+    mine = (local >= 0) & (local < w.shape[0])
+    rows = w[torch.where(mine, local, torch.zeros_like(local))]
+    return all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)), group)
+
+
+def _stack_rows(rows: Dict[int, torch.Tensor], extract_layer: ExtractSpec,
+                params: Optional[Dict[str, Any]] = None):
     """The rows in the spec's container: None -> None, an int -> (B, H, T),
-    a sequence -> (L, B, H, T) in the spec's order."""
+    a sequence -> (L, B, H, T) in the spec's order. A tensor-parallel
+    rank's rows (its own heads) are gathered over the ``model`` axis."""
     if extract_layer is None:
         return None
+    group = None if params is None else split_group(params, "attn")
+    rows = {layer: all_gather(r, group, 1) for layer, r in rows.items()}
     if isinstance(extract_layer, int):
         return rows[extract_layer]
     return torch.stack([rows[layer] for layer in extract_layers_tuple(extract_layer)])
@@ -303,10 +340,11 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
     if not flash:
         causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
         mask = causal & attention_mask[:, None, :]
+    kvh = local_kv_heads(params, cfg)
     if kv_quant:
-        cache = init_quant_kv_cache(cfg, B, max_seq, dev)
+        cache = init_quant_kv_cache(cfg, B, max_seq, dev, kvh)
     else:
-        cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev)
+        cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev, kvh)
 
     x = inputs_embeds
     rows = {}
@@ -327,7 +365,7 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
             cache.k[i, :, :T] = k
             cache.v[i, :, :T] = v
         x = layer_residuals(lp, cfg, x, attn)
-    return final_logits(params, cfg, x[:, -1]), cache, _stack_rows(rows, extract_layer)
+    return final_logits(params, cfg, x[:, -1]), cache, _stack_rows(rows, extract_layer, params)
 
 
 def llama_prefill(
@@ -373,7 +411,7 @@ def attend_cache(kv, layer: int, q: torch.Tensor, kv_mask: torch.Tensor,
         return decode_attn_int8(
             q[:, 0], kv.k_q, kv.k_s, kv.v_q, kv.v_s, kv_mask, layer=layer,
             sm_scale=1.0 / math.sqrt(cfg.head_dim),
-        ).reshape(q.shape[0], 1, cfg.hidden_size)
+        ).reshape(q.shape[0], 1, -1)
     return _attn(q, kv.k[layer], kv.v[layer], kv_mask[:, None, :], cfg,
                  want_probs=False)[0]
 
@@ -412,7 +450,7 @@ def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
             attn, rows[i] = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
                                   want_probs=True)
         x = layer_residuals(lp, cfg, x, attn)
-    return final_logits(params, cfg, x[:, 0]), kv, _stack_rows(rows, extract_layer)
+    return final_logits(params, cfg, x[:, 0]), kv, _stack_rows(rows, extract_layer, params)
 
 
 def llama_decode_step(

@@ -29,10 +29,12 @@ from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig, clip_vision_feat
 from attwarp_tpu_torch.models.llama import (
     ExtractSpec,
     LlamaConfig,
+    embed,
     llama_decode_step,
     llama_prefill,
 )
-from attwarp_tpu_torch.numerics.quant import is_quantized
+from attwarp_tpu_torch.numerics.quant import is_quantized, row_linear
+from attwarp_tpu_torch.parallel.comm import split_group
 
 
 @dataclass(frozen=True)
@@ -62,7 +64,10 @@ def encode_images(params, cfg: LlavaConfig, pixel_values: torch.Tensor) -> torch
     p = params["projector"]
     h = _gelu(feats @ p["linear_1"]["weight"].T + p["linear_1"]["bias"],
               cfg.projector_act)
-    return h @ p["linear_2"]["weight"].T + p["linear_2"]["bias"]
+    group = split_group(p, "mlp")
+    if group is None:
+        return h @ p["linear_2"]["weight"].T + p["linear_2"]["bias"]
+    return row_linear(h, p["linear_2"], group)
 
 
 def embed_and_splice(params, cfg: LlavaConfig, input_ids: torch.Tensor,
@@ -70,7 +75,7 @@ def embed_and_splice(params, cfg: LlavaConfig, input_ids: torch.Tensor,
     """``input_ids`` (HF-expanded: ``num_image_tokens`` image-token ids per
     sample) -> embeddings with the image tokens replaced, in order, by the
     projected image features."""
-    emb = params["llama"]["embed_tokens"][torch.clamp(input_ids, min=0)]
+    emb = embed(params["llama"], torch.clamp(input_ids, min=0))
     img = encode_images(params, cfg, pixel_values).to(emb.dtype)   # (B, N, D)
     is_img = input_ids == cfg.image_token_index
     order = torch.clamp(torch.cumsum(is_img.to(torch.int64), dim=1) - 1,
@@ -156,7 +161,7 @@ class LlavaModel:
         for step in range(max_new_tokens):
             cur_len = T + step
             full_mask[:, cur_len] = True
-            emb = params["llama"]["embed_tokens"][tok][:, None, :]
+            emb = embed(params["llama"], tok)[:, None, :]
             logits, kv, row = llama_decode_step(
                 params["llama"], tcfg, emb, kv, cur_len, lengths + step,
                 full_mask, extract_layer=extract_layer,

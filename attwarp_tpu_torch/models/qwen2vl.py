@@ -43,7 +43,10 @@ from attwarp_tpu_torch.models.llama import (
     _rotate_half,
     decoder_decode_step,
     decoder_prefill,
+    embed,
 )
+from attwarp_tpu_torch.numerics.quant import row_linear
+from attwarp_tpu_torch.parallel.comm import all_gather, split_group
 
 
 # ── configs ─────────────────────────────────────────────────────────────
@@ -192,11 +195,15 @@ def qwen2vl_vision_features(
     patches: torch.Tensor,          # (B, N, C*T*P*P) HF-patchified
     grid_hw: Tuple[int, int],       # (gh, gw), one grid for the batch
 ) -> torch.Tensor:
-    """Vision tower -> merged features (B, N / merge², hidden_size)."""
+    """Vision tower -> merged features (B, N / merge², hidden_size). On a
+    tensor-parallel rank (``parallel/llava_sharding.py``) each block holds
+    its heads of ``qkv`` and its slice of ``fc1``; ``proj``, ``fc2`` and
+    the merger's ``fc2`` sum over the ``model`` axis."""
     dt = params["patch_weight"].dtype
     B, N, _ = patches.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    x = patches.to(dt) @ params["patch_weight"].T                 # (B, N, embed)
+    hd = cfg.head_dim
+    x = all_gather(patches.to(dt) @ params["patch_weight"].T,      # (B, N, embed)
+                   split_group(params, "patch"), -1)
     freqs = torch.as_tensor(_vision_rot_pos(grid_hw, cfg), device=x.device)
     emb = torch.cat([freqs, freqs], dim=-1)                        # (N, hd)
     cos = torch.cos(emb)[:, None, :]
@@ -204,7 +211,7 @@ def qwen2vl_vision_features(
     scale = 1.0 / math.sqrt(hd)
     for blk in params["blocks"]:
         h = _ln(x, blk["norm1"])
-        q, k, v = _lin(h, blk["qkv"]).reshape(B, N, 3, H, hd).unbind(2)
+        q, k, v = _lin(h, blk["qkv"]).reshape(B, N, 3, -1, hd).unbind(2)
         q = _rope_f32(q, cos, sin)
         k = _rope_f32(k, cos, sin)
         attn = torch.empty_like(q)
@@ -213,16 +220,16 @@ def qwen2vl_vision_features(
             probs = torch.softmax(logits * scale, dim=-1)
             attn[b] = torch.einsum("hqk,khd->qhd", probs.to(v.dtype), v[b])
             del logits, probs
-        x = x + _lin(attn.reshape(B, N, cfg.embed_dim), blk["proj"])
+        x = x + row_linear(attn.reshape(B, N, -1), blk["proj"], split_group(blk, "attn"))
         m = _lin(_ln(x, blk["norm2"]), blk["fc1"])
         m = m * torch.sigmoid(1.702 * m) if cfg.hidden_act == "quick_gelu" else F.gelu(m)
-        x = x + _lin(m, blk["fc2"])
+        x = x + row_linear(m, blk["fc2"], split_group(blk, "mlp"))
 
     # PatchMerger: LN per patch, group merge² consecutive patches, MLP
     mg = params["merger"]
     y = _ln(x, mg["ln_q"]).reshape(B, -1, cfg.embed_dim * cfg.spatial_merge_size ** 2)
     y = F.gelu(_lin(y, mg["fc1"]), approximate="none")
-    return _lin(y, mg["fc2"])                                      # (B, N/4, hidden)
+    return row_linear(y, mg["fc2"], split_group(mg, "mlp"))       # (B, N/4, hidden)
 
 
 # ── M-RoPE ──────────────────────────────────────────────────────────────
@@ -327,7 +334,7 @@ def embed_and_splice(params, cfg: Qwen2VLConfig, input_ids: torch.Tensor,
     """Replace image-token embeddings with vision features in order.
     ``image_features``: (N_img_tokens, D) for one image shared across the
     batch, or (B, N_img_tokens, D) per sample (same token count)."""
-    emb = params["text"]["embed_tokens"][torch.clamp(input_ids, min=0)]
+    emb = embed(params["text"], torch.clamp(input_ids, min=0))
     feats = image_features.to(emb.dtype)
     is_img = input_ids == cfg.image_token_id
     order = torch.clamp(torch.cumsum(is_img.to(torch.int64), dim=1) - 1, 0,
@@ -449,7 +456,7 @@ class Qwen2VLModel:
             # all three M-RoPE streams share the text position after the prompt
             p = T + deltas + step                                  # (B,)
             cos1, sin1 = mrope_cos_sin(p[None, :, None].expand(3, B, 1), tcfg)
-            emb = params["text"]["embed_tokens"][tok][:, None, :]
+            emb = embed(params["text"], tok)[:, None, :]
             logits, kv, row = qwen2vl_decode_step(
                 params["text"], tcfg, emb, kv, cur_len, cos1, sin1, full_mask,
                 extract_layer=extract_layer,

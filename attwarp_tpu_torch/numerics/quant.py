@@ -24,10 +24,12 @@ The JAX package computes this product with XLA's ``dot_general``
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from attwarp_tpu_torch.parallel.comm import Group, all_gather, all_reduce, split_group
 
 DECODER_LINEAR_KEYS: Tuple[str, ...] = (
     "q_proj", "k_proj", "v_proj", "o_proj",
@@ -119,15 +121,40 @@ def apply_linear(h: torch.Tensor, w: Any) -> torch.Tensor:
     return F.linear(h, w["weight"], w["bias"])
 
 
+def row_linear(h: torch.Tensor, w: Any, group: Optional[Group]) -> torch.Tensor:
+    """``apply_linear`` of a row-parallel linear: ``h`` holds this rank's
+    slice of the input features and ``w`` the matching columns. The
+    partial products are summed over ``group`` and the bias added once;
+    with no group it is ``apply_linear``. An int8 weight quantizes ``h``
+    with the per-token scale of the whole row (a max over the group) and
+    sums the int32 products, so the result is bit-equal to the unsharded
+    w8a8 product."""
+    if group is None:
+        return apply_linear(h, w)
+    if not isinstance(w, dict):
+        return all_reduce(F.linear(h, w), group)
+    if not is_quantized(w):
+        return all_reduce(F.linear(h, w["weight"]), group) + w["bias"]
+    h32 = h.to(torch.float32)
+    amax = all_reduce(torch.amax(torch.abs(h32), dim=-1, keepdim=True), group, "max")
+    ascale = torch.clamp(amax, min=1e-12) / 127.0
+    hq = torch.clamp(torch.round(h32 / ascale), -127, 127).to(torch.int8)
+    y = all_reduce(int8_matmul(hq.reshape(-1, hq.shape[-1]), w["q"]), group)
+    return rescale(y.reshape(*h.shape[:-1], -1), ascale, w).to(h.dtype)
+
+
 def lm_logits(x: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
     """Final hidden ``(B, hidden)`` -> f32 logits ``(B, vocab)`` through
     ``params["lm_head"]`` (or the tied ``embed_tokens``): the dense head in
     f32, as the JAX dense head computes it (greedy tokens depend on it), or
-    the int8 head (``+lm8``) as a w8a8 product."""
+    the int8 head (``+lm8``) as a w8a8 product. A vocabulary-parallel head
+    (``parallel/llava_sharding.py``) gathers its ranks' logits."""
     w = params.get("lm_head", params["embed_tokens"])
     if is_quantized(w):
-        return w8a8(x, w)
-    return F.linear(x.to(torch.float32), w.to(torch.float32))
+        out = w8a8(x, w)
+    else:
+        out = F.linear(x.to(torch.float32), w.to(torch.float32))
+    return all_gather(out, split_group(params, "vocab"), -1)
 
 
 def quantize_lm_head(params: Dict[str, Any]) -> Dict[str, Any]:

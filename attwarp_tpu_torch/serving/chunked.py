@@ -49,9 +49,11 @@ from attwarp_tpu_torch.models.llama import (
     append_token,
     apply_rope,
     attend_cache,
+    embed,
     final_logits,
     layer_project,
     layer_residuals,
+    local_kv_heads,
 )
 from attwarp_tpu_torch.numerics.quant import quantize_kv
 from attwarp_tpu_torch.serving.engine import Request, ServeEngine, sample_tokens
@@ -93,7 +95,8 @@ class ChunkedPrefillEngine(ServeEngine):
         self.P = prefill_chunk
         # the admitting prompt's exact K/V, any bucket ``submit`` accepts
         t = self.tcfg
-        shape = (t.num_hidden_layers, self.max_seq, t.kv_heads, t.head_dim)
+        shape = (t.num_hidden_layers, self.max_seq, local_kv_heads(self.text_params, t),
+                 t.head_dim)
         dt = self.text_params["embed_tokens"].dtype
         self.stage_k = torch.zeros(shape, dtype=dt, device=self.device)
         self.stage_v = torch.zeros(shape, dtype=dt, device=self.device)
@@ -150,14 +153,14 @@ class ChunkedPrefillEngine(ServeEngine):
         the first-token logits (vocab,) when the chunk completes its
         prompt, else None)."""
         p, t = self.text_params, self.tcfg
-        H, kvH, hd = t.num_attention_heads, t.kv_heads, t.head_dim
+        hd = t.head_dim
         B = 0 if rows is None else tokens.shape[0]
         parts = []
         if B:
             cos, sin = self._decode_rope(cur, starts, deltas)
             mask = self._slot_mask(cur, starts)
             at = (rows, cur[rows])
-            parts.append(p["embed_tokens"][tokens])
+            parts.append(embed(p, tokens))
         if chunk is not None:
             a, dst, n = chunk
             ccos, csin = a.cos[None, dst:dst + n], a.sin[None, dst:dst + n]
@@ -169,14 +172,14 @@ class ChunkedPrefillEngine(ServeEngine):
             q, k, v = layer_project(lp, t, x)
             outs = []
             if B:
-                qd, kd = apply_rope(q[:B].reshape(B, 1, H, hd),
-                                    k[:B].reshape(B, 1, kvH, hd), cos, sin)
-                append_token(self.kv, i, at, kd[rows, 0], v[:B].reshape(B, kvH, hd)[rows])
+                qd, kd = apply_rope(q[:B].reshape(B, 1, -1, hd),
+                                    k[:B].reshape(B, 1, -1, hd), cos, sin)
+                append_token(self.kv, i, at, kd[rows, 0], v[:B].reshape(B, -1, hd)[rows])
                 outs.append(attend_cache(self.kv, i, qd, mask, t)[:, 0])
             if chunk is not None:
-                qc, kc = apply_rope(q[B:].reshape(1, n, H, hd),
-                                    k[B:].reshape(1, n, kvH, hd), ccos, csin)
-                vc = v[B:].reshape(1, n, kvH, hd)
+                qc, kc = apply_rope(q[B:].reshape(1, n, -1, hd),
+                                    k[B:].reshape(1, n, -1, hd), ccos, csin)
+                vc = v[B:].reshape(1, n, -1, hd)
                 k_all = torch.cat([self.stage_k[i, None, :dst], kc], dim=1)
                 v_all = torch.cat([self.stage_v[i, None, :dst], vc], dim=1)
                 outs.append(_attn(qc, k_all, v_all, cmask, t, want_probs=False)[0][0])

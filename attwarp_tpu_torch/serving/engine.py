@@ -51,8 +51,10 @@ from attwarp_tpu_torch.models import llava, qwen2vl
 from attwarp_tpu_torch.models.llama import (
     decoder_decode_step,
     decoder_prefill,
+    embed,
     init_kv_cache,
     init_quant_kv_cache,
+    local_kv_heads,
     rope_cos_sin,
 )
 
@@ -135,11 +137,17 @@ class ServeEngine:
                        else "llava")
         self.text_params = model.params["text" if self.family == "qwen2vl" else "llama"]
         self.use_flash = use_flash
+        # the model admission prefills run on (``DisaggServeEngine`` puts
+        # another copy of the weights on another device here)
+        self.prefill_model = model
+        self.kv_transfers = 0   # KV blocks moved from the prefill model's device
+        # a tensor-parallel model's slot cache holds its rank's kv heads
+        kvh = local_kv_heads(self.text_params, self.tcfg)
         if kv_quant:
-            self.kv = init_quant_kv_cache(self.tcfg, slots, max_seq, self.device)
+            self.kv = init_quant_kv_cache(self.tcfg, slots, max_seq, self.device, kvh)
         else:
             self.kv = init_kv_cache(self.tcfg, slots, max_seq,
-                                    self.text_params["embed_tokens"].dtype, self.device)
+                                    self.text_params["embed_tokens"].dtype, self.device, kvh)
         if admit_batch_cold == 0:
             self.admit_batch_cold = self._fit_cold_cap(self.admit_batch_cold)
         self._positions = torch.arange(max_seq, device=self.device)
@@ -292,8 +300,11 @@ class ServeEngine:
         Qwen2-VL, its M-RoPE decode delta re-based from the padded to the
         valid length. Returns embeds (n, Tb, D), mask (n, Tb) bool and the
         rotary cos/sin (n, Tb, hd) of every position (LLaMA: valid-token
-        counts; Qwen2-VL: M-RoPE over the group's shared grid)."""
-        cfg, dev = self.cfg, self.device
+        counts; Qwen2-VL: M-RoPE over the group's shared grid), on the
+        prefill model's device."""
+        model = self.prefill_model
+        cfg, dev = self.cfg, model.device
+        text = model.params["text" if self.family == "qwen2vl" else "llama"]
         n = len(chunk)
         ids_np = np.zeros((n, Tb), np.int64)
         mask_np = np.zeros((n, Tb), bool)
@@ -308,8 +319,8 @@ class ServeEngine:
         pixels = (torch.as_tensor(np.stack([r.pixel_values for _, r in chunk]), device=dev)
                   if with_image else None)
         if self.family == "llava":
-            embeds = (llava.embed_and_splice(self.model.params, cfg, ids, pixels)
-                      if with_image else self.text_params["embed_tokens"][ids])
+            embeds = (llava.embed_and_splice(model.params, cfg, ids, pixels)
+                      if with_image else embed(text, ids))
             positions = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
             cos, sin = rope_cos_sin(positions, self.tcfg.head_dim, self.tcfg.rope_theta)
             return embeds, mask, cos, sin
@@ -317,10 +328,10 @@ class ServeEngine:
         if with_image:
             patches, grid = qwen2vl.patchify_batch(pixels, cfg.vision)
             feats = qwen2vl.qwen2vl_vision_features(
-                self.model.params["vision"], cfg.vision, patches, grid[1:])
-            embeds = qwen2vl.embed_and_splice(self.model.params, cfg, ids, feats)
+                model.params["vision"], cfg.vision, patches, grid[1:])
+            embeds = qwen2vl.embed_and_splice(model.params, cfg, ids, feats)
         else:
-            embeds = self.text_params["embed_tokens"][ids]
+            embeds = embed(text, ids)
         pos, deltas = qwen2vl.get_mrope_positions(
             ids_np, mask_np.astype(np.int64), grid or (1, 2, 2),
             cfg.image_token_id, cfg.vision.spatial_merge_size)
@@ -331,12 +342,20 @@ class ServeEngine:
 
     def _prefill_group(self, Tb: int, with_image: bool, chunk) -> None:
         """One batched prefill (kernel K2 with ``use_flash`` where JAX's gate
-        allows) and one grouped insert for ``chunk``, either family."""
+        allows) on the prefill model and one grouped insert for ``chunk``,
+        either family."""
         embeds, mask, cos, sin = self._embed_group(Tb, with_image, chunk)
+        text = self.prefill_model.params["text" if self.family == "qwen2vl" else "llama"]
         logits, block, _ = decoder_prefill(
-            self.text_params, self.tcfg, embeds, mask, cos, sin, max_seq=Tb,
+            text, self.tcfg, embeds, mask, cos, sin, max_seq=Tb,
             use_flash=self.use_flash, kv_quant=self.kv_quant)
-        self._insert(block, chunk, Tb, torch.argmax(logits, dim=-1))
+        firsts = torch.argmax(logits, dim=-1)
+        if self.prefill_model is not self.model:
+            # one transfer per admission group: the finished block
+            block = type(block)(*(t.to(self.device) for t in block))
+            firsts = firsts.to(self.device)
+            self.kv_transfers += 1
+        self._insert(block, chunk, Tb, firsts)
 
     def _insert(self, block, chunk, Tb: int, firsts: torch.Tensor) -> None:
         """Copy a group's prefill cache block (L, n, Tb, ...) into its
@@ -398,7 +417,7 @@ class ServeEngine:
     def _decode_step(self, tokens, cur, starts, deltas) -> torch.Tensor:
         """Every slot one token; returns the f32 logits (B, vocab)."""
         cos, sin = self._decode_rope(cur, starts, deltas)
-        emb = self.text_params["embed_tokens"][tokens][:, None, :]
+        emb = embed(self.text_params, tokens)[:, None, :]
         logits, _, _ = decoder_decode_step(self.text_params, self.tcfg, emb, self.kv,
                                            cur, cos, sin, self._slot_mask(cur, starts))
         return logits

@@ -3,8 +3,9 @@ equal to it by the tests.
 
 Field-for-field parity with the reference frozen dataclass
 (``model/marginalnet_full_dataset/config.py:7-53``) plus the JAX package's
-mesh fields, kept for parity: the port trains on one device. Environment
-overrides for WANDB_* / LOG_EVERY are honored the same way.
+mesh fields, which lay out the ranks of a multi-process run
+(``train/trainer.py``). Environment overrides for WANDB_* / LOG_EVERY are
+honored the same way.
 """
 
 from __future__ import annotations

@@ -15,14 +15,22 @@ The optimizer is optax's ``chain(clip_by_global_norm, adamw)``: the
 gradients are clipped as optax clips them (``(g / norm) * clip`` where the
 global norm reaches ``clip``, on the device with no host sync), then
 ``torch.optim.AdamW`` with optax's defaults updates every parameter, biases
-included. JAX's ``make_sharded_train_step`` waits for the parallel layer
-(ROADMAP Queue 1 item 7).
+included.
+
+``make_sharded_train_step`` is the same step over a ``(data, model)`` mesh
+of ranks (``parallel/mesh.py``): each rank takes its slice of the batch,
+MarginalNet's large kernels are column-parallel over ``model``
+(``parallel/mesh.py::shard_params``, the activations gathered where the
+next layer needs full channels), the gradients are averaged over ``data``,
+the AdamW moments are the rank's slices of its parameters', and the global
+norm sums the squares of the sharded gradients over ``model`` once and
+adds the replicated ones once.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -31,6 +39,8 @@ from attwarp_tpu_torch.numerics.cdf import gt_marginals
 from attwarp_tpu_torch.numerics.losses import recon_l1
 from attwarp_tpu_torch.numerics.pooling import adaptive_avg_pool2d, upsample_pdf_right_inverse
 from attwarp_tpu_torch.numerics.safe import entropy, mix_with_uniform, normalize_pdf
+from attwarp_tpu_torch.parallel.comm import all_reduce
+from attwarp_tpu_torch.parallel.mesh import Mesh, shard_batch, shard_params
 from attwarp_tpu_torch.train.config import TrainConfig
 
 
@@ -122,32 +132,49 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               cfg: TrainConfig) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One forward, backward, clip and AdamW update; ``metrics`` has the
-    loss terms and ``grad_norm``, the global norm before the clip (and with
-    ``cfg.watch_gradients`` each module's, under ``grad_norm/<module>``)."""
-    model, opt = state.model, state.optimizer
-    opt.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(model, batch, state.step, cfg)
-    loss.backward()
-    named = [(n, p.grad) for n, p in model.named_parameters()]
-    norm = _global_norm([g for _, g in named])
+def _sharded_norm(named, sharded, mesh: Mesh) -> torch.Tensor:
+    """The global norm of gradients of which those named in ``sharded`` are
+    this rank's slices over ``model``: their squares summed over the group
+    once, the replicated ones' added once."""
+    part = [torch.sum(g * g) for n, g in named if n in sharded]
+    whole = [torch.sum(g * g) for n, g in named if n not in sharded]
+    sq = all_reduce(torch.stack(part).sum(), mesh.model) if part else 0.0
+    return torch.sqrt(sq + (torch.stack(whole).sum() if whole else 0.0))
+
+
+def _clip_and_update(state: TrainState, named, metrics, cfg: TrainConfig, norm_of):
+    """``grad_norm`` (and with ``cfg.watch_gradients`` each module's, under
+    ``grad_norm/<module>``) by ``norm_of``, then optax's clip and the AdamW
+    update."""
+    norm = norm_of(named)
     metrics["grad_norm"] = norm.detach()
     if cfg.watch_gradients:
         # per-module gradient norms, the counterpart of the reference's
         # best-effort wandb.watch(net, log="gradients") (trainer.py:146-153)
         groups: Dict[str, list] = {}
         for n, g in named:
-            groups.setdefault(n.split(".")[0], []).append(g)
-        for name, gs in groups.items():
-            metrics[f"grad_norm/{name}"] = _global_norm(gs).detach()
+            groups.setdefault(n.split(".")[0], []).append((n, g))
+        for name, pairs in groups.items():
+            metrics[f"grad_norm/{name}"] = norm_of(pairs).detach()
     clip = torch.tensor(cfg.grad_clip, dtype=norm.dtype, device=norm.device)
     for _, g in named:
         g.copy_(torch.where(norm < clip, g, (g / norm) * clip))
-    opt.step()
+    state.optimizer.step()
     state.step += 1
     return state, metrics
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               cfg: TrainConfig) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One forward, backward, clip and AdamW update; ``metrics`` has the
+    loss terms and ``grad_norm``, the global norm before the clip (and with
+    ``cfg.watch_gradients`` each module's, under ``grad_norm/<module>``)."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, metrics = loss_fn(state.model, batch, state.step, cfg)
+    loss.backward()
+    named = [(n, p.grad) for n, p in state.model.named_parameters()]
+    return _clip_and_update(state, named, metrics, cfg,
+                            lambda pairs: _global_norm([g for _, g in pairs]))
 
 
 @torch.no_grad()
@@ -155,3 +182,79 @@ def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
               cfg: TrainConfig) -> Dict[str, torch.Tensor]:
     _, metrics = loss_fn(state.model, batch, state.step, cfg)
     return metrics
+
+
+def _data_mean(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Each tensor replaced in place by its mean over the ``data`` axis (one
+    all-reduce for all of them)."""
+    if mesh.data.size == 1:
+        return
+    flat = all_reduce(torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]),
+                      mesh.data) / mesh.data.size
+    for t, part in zip(tensors, torch.split(flat, [t.numel() for t in tensors])):
+        t.copy_(part.reshape(t.shape))
+
+
+def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Metrics of the rank's slice -> the global batch's (every metric is a
+    mean over the batch, and the slices are equal)."""
+    vals = [v.reshape(1).clone() for v in metrics.values()]
+    _data_mean(vals, mesh)
+    return {k: v[0] for k, v in zip(metrics, vals)}
+
+
+def _reshard_optimizer(old: torch.optim.Optimizer, names: List[str], model: MarginalNet,
+                       cfg: TrainConfig, mesh: Mesh) -> torch.optim.Optimizer:
+    """A new AdamW over the sharded model carrying ``old``'s moments, each
+    sharded parameter's sliced as the parameter was."""
+    saved = old.state_dict()
+    opt = make_optimizer(cfg, model)
+    state = {}
+    for i, name in enumerate(names):
+        st = saved["state"].get(i)
+        if st is None:
+            continue
+        if name in model.sharded_names:
+            g = mesh.model
+            st = {k: (v.chunk(g.size)[g.rank].clone() if k.startswith("exp_avg") else v)
+                  for k, v in st.items()}
+        state[i] = st
+    opt.load_state_dict({"state": state, "param_groups": saved["param_groups"]})
+    return opt
+
+
+def make_sharded_train_step(model: MarginalNet, cfg: TrainConfig, mesh: Mesh,
+                            state: TrainState, batch: Dict[str, torch.Tensor],
+                            with_eval: bool = False):
+    """The train step over ``mesh``'s ranks; returns (fn, sharded_state,
+    sharded_batch), or (fn, eval_fn, sharded_state, sharded_batch) with
+    ``with_eval``. ``model`` (``state.model``) is sharded in place
+    (``parallel/mesh.py::shard_params``) and ``state``'s optimizer moments
+    with it. ``fn(state, b)`` and ``eval_fn(state, b)`` take the rank's
+    slice of a batch (``shard_batch``) and return the global batch's
+    metrics, on every rank."""
+    names = [n for n, _ in model.named_parameters()]
+    shard_params(model, mesh)
+    sharded_state = TrainState(state.step, model,
+                               _reshard_optimizer(state.optimizer, names, model, cfg, mesh))
+
+    def norm_of(pairs):
+        return _sharded_norm(pairs, model.sharded_names, mesh)
+
+    def fn(s: TrainState, b: Dict[str, torch.Tensor]):
+        s.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(s.model, b, s.step, cfg)
+        loss.backward()
+        named = [(n, p.grad) for n, p in s.model.named_parameters()]
+        # each rank's loss is its slice's mean: the global gradient is the mean
+        _data_mean([g for _, g in named], mesh)
+        return _clip_and_update(s, named, _mean_metrics(metrics, mesh), cfg, norm_of)
+
+    @torch.no_grad()
+    def eval_fn(s: TrainState, b: Dict[str, torch.Tensor]):
+        return _mean_metrics(loss_fn(s.model, b, s.step, cfg)[1], mesh)
+
+    sharded_batch = shard_batch(batch, mesh)
+    if with_eval:
+        return fn, eval_fn, sharded_state, sharded_batch
+    return fn, sharded_state, sharded_batch

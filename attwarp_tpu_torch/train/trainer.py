@@ -5,12 +5,22 @@ feature extraction outside the optimized step, per-epoch validation with a
 once-per-epoch debug round, per-``vis_every`` debug grids + PDF/CDF plots,
 per-``log_every`` scalar metrics, per-epoch checkpoints, loss curves.
 
-One device: the step runs the model in bf16 under autocast with f32
-parameters (``marginalnet/model.py``). A debug round's warps run kernel
-K1 on a CUDA device, under ``torch.no_grad()``; only the plotting is kept
-from ending the run (``train/viz.py`` never raises), so a failing kernel
-does end it. JAX's multi-device branch waits for the parallel layer
-(ROADMAP Queue 1 item 7).
+The step runs the model in bf16 under autocast with f32 parameters
+(``marginalnet/model.py``). A debug round's warps run kernel K1 on a CUDA
+device, under ``torch.no_grad()``; only the plotting is kept from ending
+the run (``train/viz.py`` never raises), so a failing kernel does end it.
+
+Several ranks (``torch.distributed`` initialized, e.g. under ``torchrun``;
+``cli/train.py``) take JAX's multi-device branch: a ``(mesh_data,
+mesh_model)`` mesh and ``make_sharded_train_step`` when the batch divides
+by the data axis, else every rank trains alone on the whole batch, as JAX
+then runs on one device. Each rank featurizes and steps on its own rows of
+every batch (its slice of the data axis), so the frozen MLLM's features,
+most of a batch's time, are split over the data axis; the batches of a
+debug round and a last validation batch that does not divide are
+featurized and evaluated whole on every rank. Rank 0 alone writes: the run directory, metrics, debug grids, plots
+and checkpoints (their weights and moments gathered whole); the other
+ranks return None.
 """
 
 from __future__ import annotations
@@ -21,12 +31,15 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from attwarp_tpu_torch.data.loader import batch_iterator, make_batch_iterator, split_indices
 from attwarp_tpu_torch.data.manifests import FullDataset
 from attwarp_tpu_torch.marginalnet.model import ATTENTION_GRID
 from attwarp_tpu_torch.numerics.cdf import cdf_from_density, gt_marginals
 from attwarp_tpu_torch.numerics.pooling import upsample_pdf_right_inverse
+from attwarp_tpu_torch.parallel.comm import all_gather
+from attwarp_tpu_torch.parallel.mesh import Mesh, gather_state_dict, make_mesh, shard_batch
 from attwarp_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -40,6 +53,7 @@ from attwarp_tpu_torch.train.train_step import (
     _prepare_attention,
     create_train_state,
     eval_step,
+    make_sharded_train_step,
     train_step,
 )
 from attwarp_tpu_torch.train.viz import (
@@ -76,17 +90,26 @@ def prepare_batch(batch: Dict, feats, device) -> Dict[str, torch.Tensor]:
     }
 
 
+def _data_rows(raw: Dict, mesh: Mesh) -> Dict:
+    """This rank's rows of a host batch on the ``data`` axis: the slice
+    ``shard_batch`` takes of the batch's tensors."""
+    n = len(raw["q_str"]) // mesh.data.size
+    lo = mesh.data.rank * n
+    return {k: v[lo:lo + n] for k, v in raw.items()}
+
+
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().cpu().numpy()
 
 
 @torch.no_grad()
-def _debug_round(state: TrainState, jbatch: Dict, raw_batch: Dict, out_dir: Path,
+def _debug_round(state: TrainState, jbatch: Dict, raw_batch: Dict, out_dir: Optional[Path],
                  tag: str, step: int, cfg: TrainConfig) -> None:
     """Debug grids + PDF/CDF overlays (trainer.py:283-399, 454-631): the
     whole batch warped from the predicted and from the target CDFs (and,
     for validation, from the raw full-resolution attention), at the
-    batch's size. The warps are K1 on a CUDA device."""
+    batch's size. The warps are K1 on a CUDA device. With no ``out_dir``
+    (a rank that does not write) it computes and writes nothing."""
     img = jbatch["image"]
     W_img, H_img = img.shape[2], img.shape[1]
     # same per-sample sqrt transform + pool as the training loss, so the
@@ -111,6 +134,8 @@ def _debug_round(state: TrainState, jbatch: Dict, raw_batch: Dict, out_dir: Path
         Wgt_orig = _host(torch.clamp(
             warp_from_cdf(img, cdf_from_density(pxo), cdf_from_density(pyo)), 0.0, 1.0))
 
+    if out_dir is None:
+        return
     num_vis = min(4, img.shape[0])
     save_debug_grid(
         _host(img[:num_vis]), _host(A[:num_vis]), _host(Wpred[:num_vis]),
@@ -131,6 +156,44 @@ def _debug_round(state: TrainState, jbatch: Dict, raw_batch: Dict, out_dir: Path
         )
 
 
+class _Silent:
+    """The metric sink of a rank that does not write."""
+
+    def log(self, *_, **__) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
+
+
+class _Snapshot:
+    """A state dict standing in for a module or an optimizer."""
+
+    def __init__(self, sd):
+        self.sd = sd
+
+    def state_dict(self):
+        return self.sd
+
+
+def _whole_state(state: TrainState, mesh: Optional[Mesh]) -> TrainState:
+    """``state`` with every sharded parameter and its AdamW moments gathered
+    whole over ``model`` (a collective: every rank calls it)."""
+    if mesh is None or mesh.model.size == 1:
+        return state
+    sharded = state.model.sharded_names
+    names = [n for n, _ in state.model.named_parameters()]
+    opt = state.optimizer.state_dict()
+    moments = {}
+    for i, st in opt["state"].items():
+        if names[i] in sharded:
+            st = {k: (all_gather(v, mesh.model, 0) if k.startswith("exp_avg") else v)
+                  for k, v in st.items()}
+        moments[i] = st
+    return TrainState(state.step, _Snapshot(gather_state_dict(state.model, mesh)),
+                      _Snapshot({"state": moments, "param_groups": opt["param_groups"]}))
+
+
 def train_loop(
     cfg: Optional[TrainConfig] = None,
     dataset=None,
@@ -143,13 +206,15 @@ def train_loop(
 
     ``resume_from``: a previous run's ``checkpoints/`` directory; its
     latest checkpoint (step, model, optimizer) is restored and training
-    continues from the following epoch, exactly as an unbroken run would."""
+    continues from the following epoch, exactly as an unbroken run would.
+    Under ``torch.distributed`` every rank calls it (module docstring)."""
     device = require_device(device, "train_loop")
     cfg = cfg or TrainConfig()
     _seed_everything(cfg.seed)
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    writer = not dist.is_initialized() or dist.get_rank() == 0
 
-    run_dir = create_experiment_run_dir(cfg.experiments_root, cfg)
-    save_dir = run_dir / "checkpoints"
+    run_dir = create_experiment_run_dir(cfg.experiments_root, cfg) if writer else None
 
     if dataset is None:
         dataset = FullDataset(
@@ -173,7 +238,8 @@ def train_loop(
     # probe batch -> init
     probe = next(batch_iterator(dataset, train_idx[: cfg.batch_size], cfg.batch_size,
                                 drop_last=False))
-    _, state = create_train_state(cfg, cfg.seed, prepare_batch(probe, feats, device))
+    jprobe = prepare_batch(probe, feats, device)
+    _, state = create_train_state(cfg, cfg.seed, jprobe)
 
     start_epoch = 0
     if resume_from:
@@ -192,12 +258,39 @@ def train_loop(
         cfg={"seed": cfg.seed, "epochs": cfg.epochs, "batch_size": cfg.batch_size,
              "lr": cfg.lr, "wd": cfg.wd, "hidden": cfg.hidden,
              "image_size": cfg.image_size, "w_cdf": cfg.w_cdf},
-    )
+    ) if writer else _Silent()
+
+    # optional multi-device sharding
+    mesh = None
+    step_fn = lambda s, b: train_step(s, b, cfg)          # noqa: E731
+    eval_fn = lambda s, b: eval_step(s, b, cfg)           # noqa: E731
+    n_data = cfg.mesh_data or (n_dev // cfg.mesh_model)
+    if n_dev > 1 and cfg.batch_size % max(n_data, 1) == 0:
+        mesh = make_mesh(n_data=n_data, n_model=cfg.mesh_model)
+        step_fn, eval_fn, state, _ = make_sharded_train_step(
+            state.model, cfg, mesh, state, jprobe, with_eval=True)
+    elif n_dev > 1:
+        print(
+            f"[trainer] batch_size={cfg.batch_size} not divisible by "
+            f"data-axis size {n_data}; running single-device."
+        )
+
+    def features(raw, whole: bool):
+        """(the whole batch's tensors or None, this rank's rows): only this
+        rank's rows are featurized unless ``whole`` (a debug round, an
+        indivisible batch) or the data axis is one rank."""
+        if mesh is None:
+            jb = prepare_batch(raw, feats, device)
+            return jb, jb
+        if whole or mesh.data.size == 1:
+            jb = prepare_batch(raw, feats, device)
+            return jb, shard_batch(jb, mesh)
+        return None, prepare_batch(_data_rows(raw, mesh), feats, device)
 
     global_step = state.step if resume_from else 0
     train_curve: List[float] = []
     val_curve: List[float] = []
-    timer = StageTimer(run_dir / "stages.jsonl")
+    timer = StageTimer(run_dir / "stages.jsonl" if writer else None)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     for epoch in range(start_epoch, cfg.epochs):
@@ -207,11 +300,12 @@ def train_loop(
             seed=cfg.seed + epoch, drop_last=True,
             pipeline=cfg.data_pipeline,
         ):
+            debug = (global_step + 1) % cfg.vis_every == 0
             with timer.stage("features"):
-                jbatch = prepare_batch(raw, feats, device)
+                jbatch, local = features(raw, debug)
                 sync()
             with timer.stage("train_step"):
-                state, metrics = train_step(state, jbatch, cfg)
+                state, metrics = step_fn(state, local)
                 # the host waits for the step, so the stage records its
                 # device time and not its launch
                 loss = float(metrics["loss/total"])
@@ -233,8 +327,8 @@ def train_loop(
                     if k.startswith("grad_norm/")
                 })
                 run.log(payload)
-            if global_step % cfg.vis_every == 0:
-                _debug_round(state, jbatch, raw, run_dir / "debug", "train",
+            if debug:
+                _debug_round(state, jbatch, raw, run_dir / "debug" if writer else None, "train",
                              global_step, cfg)
 
         # validation
@@ -244,18 +338,24 @@ def train_loop(
             dataset, val_idx, cfg.batch_size, shuffle=False, drop_last=False,
             pipeline=cfg.data_pipeline,
         ):
-            jbatch = prepare_batch(raw, feats, device)
-            m = eval_step(state, jbatch, cfg)
+            partial = mesh is not None and len(raw["q_str"]) % n_data != 0
+            jbatch, local = features(raw, partial or not did_debug)
+            if partial:
+                # last partial val batch: every rank evaluates it whole
+                m = eval_step(state, jbatch, cfg)
+            else:
+                m = eval_fn(state, local)
             val_sum += float(m["loss/total"])
             vb += 1
             if not did_debug:
-                _debug_round(state, jbatch, raw, run_dir / "debug_validation",
+                _debug_round(state, jbatch, raw, run_dir / "debug_validation" if writer else None,
                              f"val_{epoch + 1:03d}", global_step, cfg)
                 did_debug = True
 
         train_loss = loss_sum / max(nb, 1)
         val_loss = val_sum / max(vb, 1)
-        print(f"Epoch {epoch + 1}: train_loss={train_loss:.4f} | val_loss={val_loss:.4f}")
+        if writer:
+            print(f"Epoch {epoch + 1}: train_loss={train_loss:.4f} | val_loss={val_loss:.4f}")
         train_curve.append(train_loss)
         val_curve.append(val_loss)
         run.log(
@@ -263,12 +363,16 @@ def train_loop(
              "loss/val_epoch": val_loss},
             step=global_step,
         )
-        plot_train_val_curves(train_curve, val_curve, run_dir / "curves" / "loss.png",
-                              title="Image-res PDF L1 Loss")
+        if writer:
+            plot_train_val_curves(train_curve, val_curve, run_dir / "curves" / "loss.png",
+                                  title="Image-res PDF L1 Loss")
         if (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-            save_checkpoint(save_dir, epoch + 1, state, cfg)
+            whole = _whole_state(state, mesh)
+            if writer:
+                save_checkpoint(run_dir / "checkpoints", epoch + 1, whole, cfg)
 
-    print("Training complete. Saved to:", str(run_dir))
+    if writer:
+        print("Training complete. Saved to:", str(run_dir))
     for name, agg in timer.summary().items():
         run.log({f"stage/{name}_mean_s": agg["mean"],
                  f"stage/{name}_total_s": agg["total"]})

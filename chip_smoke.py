@@ -20,13 +20,15 @@ NVIDIA GPU.
    28/4 heads), at their serving geometry (B=16 and B=8 slots, S=768)
    with per-slot [start, cur] windows, a retired slot's [0, 0] and a free
    slot's [0, j], at step 10's LLaVA-1.5-7B geometry (the driver's B=8
-   extraction decode and the harness's 8-slot engine, both S=704), plus a
-   small GQA case.
+   extraction decode and the harness's 8-slot engine, both S=704), at a
+   tensor-parallel rank's heads (n_model=2: 16/16 and 14/2, B=4, S=704;
+   step 15), plus a small GQA case.
 5. Kernel K2 (flash prefill) against its plain version at LLaVA-1.5-7B and
    Qwen2-VL-7B prefill geometry (B=4, T=640; 32/32 and 28/4 heads), at
    their admission geometry (groups of 8 at T=704), at the dataset
-   driver's LLaVA-1.5-7B extraction prefill (B=8, T=640), all with per-row
-   left padding, plus a ragged T=200.
+   driver's LLaVA-1.5-7B extraction prefill (B=8, T=640), at a
+   tensor-parallel rank's heads (n_model=2: 16/16 and 14/2, B=4, T=640;
+   step 15), all with per-row left padding, plus a ragged T=200.
 6. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
@@ -130,8 +132,46 @@ NVIDIA GPU.
     the image repeated (maps cos > 0.9999, tokens equal), its vision tower
     timed in both forms.
 
+15. The parallel layer (``attwarp_tpu_torch/parallel``, ``serving/
+    disagg.py``, the sharded train step) on the one card. References first,
+    in this process, on seeded LLaVA-1.5-7B weights: f32 at 2 vision + 2
+    decoder layers, then bf16 at full depth (step 6's seed). 15c here: a
+    ``DisaggServeEngine`` with both groups on cuda:0 (the prefill model a
+    second copy of the weights), LLaVA-1.5-7B ``+kv8+flash``, 8 slots, 16
+    requests of 8-32 new tokens: every request's tokens equal
+    ``ServeEngine``'s, K2 = 32 x admission groups, K3 = 32 x decode steps,
+    one KV block moved per group. The weights freed, two ranks spawned
+    (``testing/ranks.py``) share cuda:0 over gloo, whose collectives other
+    than all_reduce go through host copies (printed as "host-staged"),
+    each building the same seeded weights and keeping its shard. 15a,
+    tensor-parallel LLaVA (n_model=2, 16 of 32 heads a rank): f32 2 + 2
+    layers, tokens identical to the unsharded model, maps within 1e-5 with
+    the dense cache and prefill and within 1.5x the unsharded run's own
+    distance from f32 with ``+kv8+flash`` (K2 and K3 round to bf16); bf16
+    full depth, maps cos > 0.999 on the samples whose greedy tokens equal
+    the unsharded run's (the rest printed), the prefill's maps cos above
+    ``P15_ROWS_FLOOR`` (no token can turn there), and the same maps with a
+    planted wrong cut (each rank reading the other's kv heads) below it;
+    then the two-pass
+    pipeline, per rank K1 1, K2 2 x 32, K3 20 x 31 + 20 x 32, its wall and
+    peak memory. 15b, ``sp_prefill`` (n=2, ``kv_quant``, B=4 T=640, left
+    padding): f32 2 layers, logits and rows within 1e-4 of the dense
+    prefill and int8 caches within 1 LSB; bf16 full depth, the ring's wall,
+    20 decode steps through K3 (32 x 20 a rank) from its cache, cos
+    against the dense prefill printed. 15d: ``make_sharded_warp`` (n_data
+    2) at (4,512,640,3) -> 500^2 bit-equal to the unsharded K1 (K1 1 a
+    rank); ``make_sharded_train_step`` at ``TrainConfig()`` width, batch
+    16, (data, model) = (2, 1) and (1, 2): one bf16 step, loss within
+    rtol 2e-2 and parameters within 5e-2 of the one-device step (JAX's
+    bars); two f32 steps on two batches, every metric within 1e-5
+    relative and each parameter change (both steps; the second alone,
+    which reads the AdamW moments) within cos 0.999. 15e: one rank on NCCL
+    (world size 1): all_reduce, all_gather and broadcast on CUDA tensors,
+    then 15a-15d's code at 2 layers. A failing or hung rank fails the
+    step.
+
 The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 13a, 13b,
-7, 8 (Qwen), 14c, 13c, 9, 13d.
+7, 8 (Qwen), 14c, 13c, 9, 13d, 15.
 
 Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
@@ -354,11 +394,14 @@ K1_SHAPES = (("pipeline", (4, 512, 640), 500),        # one pipeline batch
              # the learned-warp chain's predict_and_warp (chunks of 10 scenes)
              # and a full-width training debug round (the batch of 128)
              ("chain_predict", (10, 512, 512), 500),
-             ("train_debug", (128, 512, 512), 512))
+             ("train_debug", (128, 512, 512), 512),
+             # a rank's half of the pipeline batch in the data-parallel
+             # warp (step 15d)
+             ("sharded_warp", (2, 512, 640), 500))
 # the shapes whose maps come straight from 24x24 maps (the others go
 # through the MOTA mask, as the pipeline and the driver run them); a CDF
 # upsampled from MarginalNet's 24 bins inverts to the same kind of map
-_FROM_24 = ("warp_only", "chain_predict", "train_debug")
+_FROM_24 = ("warp_only", "chain_predict", "train_debug", "sharded_warp")
 
 
 def phase_k1(dev):
@@ -618,8 +661,9 @@ def phase_k3(dev):
     # (32 layers, 32/32 heads) and Qwen2-VL-7B (28 layers, 28 over 4 kv
     # heads, n_rep 7); their serving slot pools (16 and 8 slots of
     # max_seq 768, per-slot windows); LLaVA-1.5-7B in the dataset driver's
-    # extraction (B=8) and in the harness's 8-slot engine (S=704); plus a
-    # small GQA case with n_rep 8
+    # extraction (B=8) and in the harness's 8-slot engine (S=704); a
+    # tensor-parallel rank's heads; step 15's 8-slot disaggregated pool
+    # (S=768); plus a small GQA case with n_rep 8
     for name, (L, B, S, H, kvH), seed, timed, windows in (
             ("llava7b", (32, 4, 704, 32, 32), 2, True, None),
             ("qwen7b", (28, 4, 704, 28, 4), 9, True, None),
@@ -628,6 +672,11 @@ def phase_k3(dev):
             ("llava7b_dataset", (32, 8, 704, 32, 32), 14, True, _EXTRACT_WINDOWS),
             ("llava7b_dataset_serve", (32, 8, 704, 32, 32), 15, True,
              _serve_windows(8, buckets=(640,), depth=24)),
+            # a tensor-parallel rank's heads at n_model=2 (step 15), and
+            # the 8-slot pool of step 15's disaggregated engine
+            ("llava7b_tp2", (32, 4, 704, 16, 16), 16, True, None),
+            ("llava7b_disagg", (32, 8, 768, 32, 32), 18, True, _serve_windows(8)),
+            ("qwen7b_tp2", (28, 4, 704, 14, 2), 17, True, None),
             ("gqa", (2, 2, 192, 32, 4), 3, False, None)):
         q, k_q, k_s, v_q, v_s, mask = _k3_case(dev, L, B, S, H, kvH, seed, windows)
         layer = min(7, L - 1)
@@ -751,6 +800,9 @@ def phase_k2(dev):
                                         ("qwen7b_serve", (8, 704, 28, 4), True),
                                         ("llava7b_dataset", (8, 640, 32, 32), True),
                                         ("llava7b_sweep", (1, 640, 32, 32), True),
+                                        # a tensor-parallel rank's heads at n_model=2
+                                        ("llava7b_tp2", (4, 640, 16, 16), True),
+                                        ("qwen7b_tp2", (4, 640, 14, 2), True),
                                         ("ragged", (3, 200, 28, 4), False)):
         q, k, v, mask = _k2_case(dev, B, T, H, kvH, seed=8)
         got = flash_prefill(q, k, v, mask, sm)
@@ -2433,6 +2485,581 @@ def hf_child():
     print(json.dumps({"hf_llava7b_width": counts}))
 
 
+# ── step 15: the parallel layer on one card ─────────────────────────────
+
+# 15a's floor on the cos of the bf16 tensor-parallel prefill maps against
+# the unsharded ones
+P15_ROWS_FLOOR = 0.995
+
+
+def _p15_cfg(depth=None):
+    """LLaVA-1.5-7B geometry (step 6's), or cut to ``depth`` vision and
+    decoder layers."""
+    import dataclasses
+
+    from attwarp_tpu_torch.models.llama import LlamaConfig
+    from attwarp_tpu_torch.models.llava import LlavaConfig
+
+    cfg = LlavaConfig(text=LlamaConfig(vocab_size=32064), image_token_index=32000)
+    if depth is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=depth),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=depth))
+
+
+def _p15_model(depth, dtype, dev):
+    """Seeded random LLaVA weights on the card: full depth in bf16 (step 6's
+    seed), or ``depth`` layers in f32 (seed 5); the config and the tree."""
+    import torch
+
+    from attwarp_tpu_torch.models.llava import random_params
+
+    cfg = _p15_cfg(depth)
+    seed = 0 if depth is None else 5
+    return cfg, random_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev, dtype)
+
+
+def _p15_backend(cfg, params, layer):
+    from attwarp_tpu_torch.extract.llava_backend import LlavaBackend
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from attwarp_tpu_torch.models.llava import LlavaModel
+
+    return LlavaBackend(LlavaModel(cfg, params), tokenizer=DryRunTokenizer(),
+                        extract_layer=layer, kv_quant=True, use_flash=True)
+
+
+def _p15_generate(backend, kernels=True, steps=20):
+    """The first pass of the pipeline as a direct generate: 4 images, 640-
+    token prompts, ``steps`` new tokens, ``+kv8+flash`` (or, without
+    ``kernels``, the dense cache and prefill: no K2, no K3); (tokens, maps)
+    on the host and the prompt length. At ``steps=0`` the maps are the
+    prefill's rows alone, where no token can turn."""
+    import torch
+
+    from attwarp_tpu_torch.extract.resize import resize_images_batch
+
+    pix = resize_images_batch(_images(), backend.image_size, backend.device)
+    ids, mask, start, pixels = backend._prepare(pix, QUESTIONS)
+    with torch.no_grad():
+        gen, maps = backend.model.generate_with_attention(
+            ids, pixels, mask, start, extract_layer=backend.extract_layer, max_new_tokens=steps,
+            kv_quant=kernels, use_flash=kernels)
+    return gen.cpu(), maps.float().cpu(), ids.shape[1]
+
+
+def _p15_sp_inputs(llama, dev):
+    """15b's prompt: the embeddings of seeded random token ids (B=4,
+    T=640), left padding per row."""
+    import torch
+
+    from attwarp_tpu_torch.models.llama import embed
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    ids = torch.randint(3, 32000, (4, 640), generator=g, device=dev)
+    pad = torch.tensor([(37 * b) % 61 for b in range(4)], device=dev)[:, None]
+    return embed(llama, ids), torch.arange(640, device=dev)[None] >= pad
+
+
+def _p15_warp_inputs(dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    return (torch.rand((4, 512, 640, 3), generator=g, device=dev) * 255,
+            torch.rand((4, 24, 24), generator=g, device=dev))
+
+
+def _p15_train_batch(dev, B=16, seed=31):
+    """A batch at ``TrainConfig()``'s width: 512 px images and attention,
+    LLaVA-1.5-7B's feature widths (CLIP 24x24x1024, text 4096)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    ar = torch.arange(B, device=dev)
+    return {"image": r(B, 512, 512, 3), "attention_map": r(B, 512, 512),
+            "sqrt_mask": (ar % 2).float(), "none_mask": (ar % 4 == 3).float(),
+            "fmap_v": r(B, 24, 24, 1024), "ttok": r(B, 32, 4096),
+            "tmask": torch.ones((B, 32, 1), device=dev)}
+
+
+def _p15_decode(llama, cfg, cache, logits, mask, steps=20):
+    """Greedy decode steps from a prefill cache; the tokens (B, steps + 1)."""
+    import torch
+
+    from attwarp_tpu_torch.models.llama import embed, llama_decode_step
+
+    B, T = mask.shape
+    full = torch.nn.functional.pad(mask, (0, cache[0].shape[2] - T))
+    lengths = mask.sum(dim=1)
+    tok = torch.argmax(logits, dim=-1)
+    toks = [tok]
+    for step in range(steps):
+        full[:, T + step] = True
+        logits, cache, _ = llama_decode_step(llama, cfg, embed(llama, tok)[:, None], cache,
+                                             T + step, lengths + step, full)
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).cpu()
+
+
+def _p15_reset(counters):
+    import torch
+
+    from attwarp_tpu_torch.parallel.comm import host_staged
+
+    for fn in counters.values():
+        fn.launches = 0
+    host_staged.calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _p15_read(counters, t0):
+    import torch
+
+    from attwarp_tpu_torch.parallel.comm import host_staged
+
+    torch.cuda.synchronize()
+    return {"wall": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+            "staged": host_staged(), **{k: fn.launches for k, fn in counters.items()}}
+
+
+def _p15_train(batches, mesh_shape, dev, dtype):
+    """Sharded MarginalNet steps at ``TrainConfig()`` width, one on each of
+    ``batches``, computing in ``dtype``, on a (data, model) mesh beside as
+    many one-device steps from the same init: each step's metrics on both
+    sides, the parameters' max |difference| after the last step, and the
+    cosine between the two parameter changes (all steps; the last step
+    alone, which reads the AdamW moments of the steps before)."""
+    import torch
+
+    from attwarp_tpu_torch.marginalnet.model import MarginalNet
+    from attwarp_tpu_torch.parallel.mesh import gather_state_dict, make_mesh
+    from attwarp_tpu_torch.train.config import TrainConfig
+    from attwarp_tpu_torch.train.train_step import (
+        TrainState,
+        make_optimizer,
+        make_sharded_train_step,
+        train_step,
+    )
+
+    from attwarp_tpu_torch.parallel.mesh import shard_batch
+
+    cfg = TrainConfig()
+    steps = len(batches)
+
+    def net():
+        return MarginalNet(batches[0]["fmap_v"].shape[-1], batches[0]["ttok"].shape[-1],
+                           cfg.hidden,
+                           eps=cfg.eps, compute_dtype=dtype,
+                           generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+
+    def snap(sd):
+        return {k: v.detach().float().clone() for k, v in sd.items()}
+
+    one = net()
+    init = snap(one.state_dict())
+    state = TrainState(0, one, make_optimizer(cfg, one))
+    ref, ref_sd = [], []
+    for batch in batches:
+        state, m = train_step(state, batch, cfg)
+        ref.append({k: float(v) for k, v in m.items()})
+        ref_sd.append(snap(one.state_dict()))
+    mesh = make_mesh(*mesh_shape)
+    sharded = net()
+    fn, s, _ = make_sharded_train_step(
+        sharded, cfg, mesh, TrainState(0, sharded, make_optimizer(cfg, sharded)), batches[0])
+    got, got_sd = [], []
+    for batch in batches:
+        s, m = fn(s, shard_batch(batch, mesh))
+        got.append({k: float(v) for k, v in m.items()})
+        got_sd.append(snap(gather_state_dict(sharded, mesh)))
+
+    def change(sds, a, b):
+        return torch.cat([(sds[b][k] - (sds[a][k] if a >= 0 else init[k])).flatten()
+                          for k in init])
+
+    def cos(a, b):
+        return _cos(change(got_sd, a, b), change(ref_sd, a, b))
+
+    d = max((got_sd[-1][k] - ref_sd[-1][k]).abs().max().item() for k in init)
+    return {"got": got, "ref": ref, "d": d, "cos_all": cos(-1, steps - 1),
+            "cos_last": cos(steps - 2, steps - 1)}
+
+
+def _phase15_rank(rank, world, dev):
+    """One of 15's two ranks sharing ``dev`` (cuda:0) over gloo (see
+    ``phase_parallel``)."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.parallel.llava_sharding import shard_llava_params
+    from attwarp_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from attwarp_tpu_torch.parallel.sp_prefill import sp_prefill
+    from attwarp_tpu_torch.parallel.warp_sharded import make_sharded_warp
+    from attwarp_tpu_torch.pipeline import AttWarpPipeline
+    from attwarp_tpu_torch.models.llama import llama_prefill
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _counters()
+    out = {}
+    tp = make_mesh(n_data=1, n_model=2)
+    sp_mesh = make_mesh(n_data=2, n_model=1)
+
+    # 15a, f32 at 2 + 2 layers, then bf16 at full depth: generate, pipeline
+    cfg_s, small = _p15_model(2, torch.float32, dev)
+    be = _p15_backend(cfg_s, shard_llava_params(small, tp, cfg_s), 1)
+    out["a_small"] = _p15_generate(be)
+    out["a_small_f32"] = _p15_generate(be, kernels=False)
+    del be
+    cfg, full = _p15_model(None, torch.bfloat16, dev)
+    layer = 20
+    tree = shard_llava_params(full, tp, cfg)
+    backend = TimedBackend(_p15_backend(cfg, tree, layer))
+    out["a_full"] = _p15_generate(backend)
+    out["a_full_rows"] = _p15_generate(backend, steps=0)
+    # a planted fault for the prefill maps' floor, a wrong cut of the heads:
+    # every decoder layer of this rank reads the other rank's kv heads
+    kv = cfg.text.kv_heads // 2 * cfg.text.head_dim
+    wrong = dict(tree, llama=dict(tree["llama"], layers=[
+        dict(lp, **{k: full["llama"]["layers"][i][k].narrow(0, (1 - rank) * kv, kv)
+                    for k in ("k_proj", "v_proj")})
+        for i, lp in enumerate(tree["llama"]["layers"])]))
+    out["a_wrong_rows"] = _p15_generate(_p15_backend(cfg, wrong, layer), steps=0)
+    del wrong, tree
+    pipe = AttWarpPipeline(backend, warp_size=500, max_new_tokens=20)
+    t0 = _p15_reset(counters)
+    res = pipe.run(_images(), QUESTIONS)
+    out["a_pipe"] = {**_p15_read(counters, t0), "pass1": backend.seconds["pass1"],
+                     "pass2": backend.seconds["pass2"],
+                     "maps": res.attention_maps, "warped_shape": res.warped.shape,
+                     "warped_finite": bool(np.isfinite(res.warped).all()),
+                     "answers": res.second_answers}
+    del backend, pipe, res
+    torch.cuda.empty_cache()
+
+    # 15b, sequence-parallel prefill (kv_quant), f32 at 2 layers then bf16
+    emb, mask = _p15_sp_inputs(small["llama"], dev)
+    logits, cache, rows = sp_prefill(small["llama"], cfg_s.text, emb, mask, sp_mesh,
+                                     max_seq=704, extract_layer=1, kv_quant=True)
+    out["b_small"] = (logits.cpu(), [c.cpu() for c in cache], rows.cpu())
+    del small, emb, logits, cache, rows
+    emb, mask = _p15_sp_inputs(full["llama"], dev)
+    t0 = _p15_reset(counters)
+    logits, cache, rows = sp_prefill(full["llama"], cfg.text, emb, mask, sp_mesh,
+                                     max_seq=704, extract_layer=layer, kv_quant=True)
+    ring = _p15_read(counters, t0)
+    t0 = _p15_reset(counters)
+    toks = _p15_decode(full["llama"], cfg.text, cache, logits, mask)
+    out["b_decode"] = {**_p15_read(counters, t0), "ring_wall": ring["wall"],
+                       "ring_peak": ring["peak"], "ring_staged": ring["staged"],
+                       "tokens": toks, "logits": logits.float().cpu(), "rows": rows.cpu()}
+    del cache
+    if rank == 0:
+        # the dense prefill on the same weights and inputs, and its decode
+        dl, dc, dr = llama_prefill(full["llama"], cfg.text, emb, mask, max_seq=704,
+                                   extract_layer=layer, kv_quant=True)
+        out["b_dense"] = {"logits": dl.float().cpu(), "rows": dr.cpu(),
+                          "tokens": _p15_decode(full["llama"], cfg.text, dc, dl, mask)}
+        del dc
+    del full, emb
+    torch.cuda.empty_cache()
+
+    # 15d, the data-parallel warp, then the sharded train step at (2, 1), (1, 2)
+    images, atts = _p15_warp_inputs(dev)
+    b = shard_batch({"i": images, "a": atts}, sp_mesh)
+    t0 = _p15_reset(counters)
+    warped = make_sharded_warp(sp_mesh, 500, 500, gather=True)(b["i"], b["a"])
+    out["d_warp"] = {**_p15_read(counters, t0), "warped": warped.cpu()}
+    batches = [_p15_train_batch(dev), _p15_train_batch(dev, seed=32)]
+    # one step in bf16 (JAX's bars), then two in f32 on two batches (the
+    # update and the moments held)
+    out["d_train"] = {(shape, dtype): _p15_train(batches[:n], shape, dev, dtype)
+                      for shape in ((2, 1), (1, 2))
+                      for dtype, n in ((torch.bfloat16, 1), (torch.float32, 2))}
+    out["jax"] = any(m == "jax" or m.startswith(("jax.", "attwarp_tpu.")) or m == "attwarp_tpu"
+                     for m in sys.modules)
+    return out
+
+
+def _phase15_nccl(rank, world, dev):
+    """15e: one rank on NCCL (world size 1, ``dev``): the collectives NCCL
+    takes on CUDA tensors, then 15a-15d's code at 2 layers on a (1, 1)
+    mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from attwarp_tpu_torch.parallel.llava_sharding import shard_llava_params
+    from attwarp_tpu_torch.parallel.mesh import make_mesh
+    from attwarp_tpu_torch.parallel.sp_prefill import sp_prefill
+    from attwarp_tpu_torch.parallel.warp_sharded import make_sharded_warp
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    x = torch.arange(8.0, device=dev)
+    dist.all_reduce(x)
+    gathered = [torch.empty(8, device=dev)]
+    dist.all_gather(gathered, x)
+    dist.broadcast(x, src=0)
+    backend = dist.get_backend()
+    mesh = make_mesh(1, 1)
+    cfg_s, small = _p15_model(2, torch.float32, dev)
+    gen, maps, _ = _p15_generate(_p15_backend(cfg_s, shard_llava_params(small, mesh, cfg_s), 1))
+    emb, mask = _p15_sp_inputs(small["llama"], dev)
+    logits, _, rows = sp_prefill(small["llama"], cfg_s.text, emb, mask, mesh, max_seq=704,
+                                 extract_layer=1, kv_quant=True)
+    images, atts = _p15_warp_inputs(dev)
+    warped = make_sharded_warp(mesh, 500, 500, gather=True)(images, atts)
+    train = _p15_train([_p15_train_batch(dev, B=4)], (1, 1), dev, torch.bfloat16)
+    return {"backend": backend, "collectives_ok": bool(torch.equal(x, gathered[0])),
+            "gen": gen, "maps": maps, "logits": logits.cpu(), "rows": rows.cpu(),
+            "warped": warped.cpu(), "train": train}
+
+
+def _train_ok(res, dtype) -> bool:
+    """JAX's bars (``tests/test_train_step.py``) on every run: the first
+    loss within rtol 2e-2 and the parameters within 5e-2 of the one-device
+    steps'. In f32 also every metric of every step within 1e-5 relative
+    (``tests/test_torch_parallel.py``'s bar) and both parameter changes
+    within cos 0.999 of the one-device ones: a step that skips the update,
+    or moments cut from the wrong slice, moves the parameters elsewhere."""
+    ref, got = res["ref"][0]["loss/total"], res["got"][0]["loss/total"]
+    import torch
+
+    ok = abs(got - ref) <= 2e-2 * abs(ref) and res["d"] <= 5e-2
+    if dtype == torch.float32:
+        ok = (ok and _metrics_rel(res) <= 1e-5 and res["cos_all"] > 0.999
+              and res["cos_last"] > 0.999)
+    return ok
+
+
+def _metrics_rel(res) -> float:
+    """The largest relative difference of any metric of any step."""
+    return max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-9)
+               for g, r in zip(res["got"], res["ref"]) for k in r)
+
+
+def phase_parallel(dev):
+    """Step 15 (see the module docstring): references in this process, then
+    two gloo ranks on ``dev`` (15a, 15b, 15d) and one NCCL rank (15e)."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.kernels.warp_resample import warp_resample
+    from attwarp_tpu_torch.models.llama import flash_prefill_supported, llama_prefill
+    from attwarp_tpu_torch.models.llava import LlavaModel
+    from attwarp_tpu_torch.serving import DisaggServeEngine, ServeEngine, split_devices
+    from attwarp_tpu_torch.testing.ranks import run_ranks
+    from attwarp_tpu_torch.warp.warp import warp_batch_by_attention
+
+    counters = _counters()
+    paths = {}
+    # the unsharded references, on the same seeded weights
+    cfg_s, small = _p15_model(2, torch.float32, dev)
+    be = _p15_backend(cfg_s, small, 1)
+    ref_small = _p15_generate(be)
+    # the same weights with no kernel on the path: f32 throughout (K2 and
+    # K3 compute in bf16 whatever their inputs)
+    ref_small_f32 = _p15_generate(be, kernels=False)
+    del be
+    emb, mask = _p15_sp_inputs(small["llama"], dev)
+    dl, dc, dr = llama_prefill(small["llama"], cfg_s.text, emb, mask, max_seq=704,
+                               extract_layer=1, kv_quant=True)
+    ref_sp = (dl.cpu(), [c.cpu() for c in dc], dr.cpu(), mask.cpu())
+    del small, emb, dl, dc, dr
+    cfg, full = _p15_model(None, torch.bfloat16, dev)
+    L = cfg.text.num_hidden_layers
+    fails = []
+
+    def bar(cond, what):
+        # every rank's figures are printed before the step fails
+        if not cond:
+            fails.append(what)
+
+    backend = _p15_backend(cfg, full, 20)
+    ref_full = _p15_generate(backend)
+    ref_rows = _p15_generate(backend, steps=0)
+    # the code's launch counts for a two-pass pipeline run on these prompts
+    k2_pass = L if flash_prefill_supported(ref_full[2]) else 0
+
+    # 15c: DisaggServeEngine, both groups on cuda:0, against ServeEngine
+    decode_devs, prefill_devs = split_devices([dev, dev])
+    check(decode_devs == prefill_devs == [dev], "15c: split_devices")
+    prefill_model = LlavaModel(cfg, {k: _clone_tree(v) for k, v in full.items()})
+    reqs = _serve_requests(backend, 16, seed=15)
+    kw = dict(slots=8, max_seq=768, kv_quant=True, use_flash=True, steps_per_tick=8)
+    outs = {}
+    for name, eng in (("serve", ServeEngine(backend.model, **kw)),
+                      ("disagg", DisaggServeEngine(backend.model, prefill_model, **kw))):
+        t0 = _p15_reset(counters)
+        rids = [eng.submit(r["input_ids"], r["pixel_values"], r["max_new_tokens"]) for r in reqs]
+        res = eng.run()
+        got = _p15_read(counters, t0)
+        outs[name] = [res[r] for r in rids]
+        want = {"warp_resample": 0, "flash_prefill": L * eng.prefill_groups,
+                "decode_attn_int8": L * eng.decode_steps}
+        n_tok = sum(len(o) for o in outs[name])
+        print(f"[15c {name}] 16 requests, 8 slots, {n_tok} tokens in {got['wall']:.3f} s "
+              f"({n_tok / got['wall']:.1f} tok/s), {eng.prefill_groups} admission groups, "
+              f"{eng.decode_steps} decode steps, peak {got['peak'] / 2**30:.2f} GiB | launches: "
+              + ", ".join(f"{k} {got[k]} (expected {want[k]})" for k in want)
+              + (f" | KV blocks moved {eng.kv_transfers}" if name == "disagg" else ""))
+        for k in want:
+            check(got[k] == want[k], f"15c {name}: {k} launch count")
+        if name == "disagg":
+            paths["disagg"] = {k: got[k] for k in want}
+            check(eng.kv_transfers == eng.prefill_groups, "15c: one KV move per group")
+    same = sum(a == b for a, b in zip(outs["serve"], outs["disagg"]))
+    print(f"[15c disagg] {same}/16 requests token-identical to ServeEngine's")
+    check(same == 16, "15c: disaggregated tokens differ from ServeEngine's")
+    del backend, prefill_model, full, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15d's reference: the unsharded K1 on the same images
+    images, atts = _p15_warp_inputs(dev)
+    ref_warp = warp_batch_by_attention(images, atts, 500, 500).cpu()
+    del images, atts
+    warp_resample.launches = 0
+    torch.cuda.empty_cache()
+    print(f"[15] references done; memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+          f"spawning 2 gloo ranks on {dev}")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_phase15_rank, 2, (dev,), backend="gloo", timeout=900)
+    print(f"[15] 2 ranks done in {time.perf_counter() - t0:.2f} s")
+    n_side = cfg.vision.image_size // cfg.vision.patch_size
+    for r, out in enumerate(ranks):
+        bar(not out["jax"], f"15: rank {r} imported JAX")
+        # 15a
+        gen, maps, _ = out["a_small_f32"]
+        d = (maps - ref_small_f32[1]).abs().max().item()
+        print(f"[15a rank {r}] f32 2+2 layers, n_model=2, dense cache and prefill (f32 "
+              f"throughout): tokens {'identical' if torch.equal(gen, ref_small_f32[0]) else 'DIFFER'}"
+              f", maps max|d| {d:.3g} (bar 1e-5)")
+        bar(torch.equal(gen, ref_small_f32[0]) and d <= 1e-5, "15a: f32 TP disagrees")
+        gen, maps, _ = out["a_small"]
+        d = (maps - ref_small[1]).abs().max().item()
+        # K2 and K3 round q, k and v to bf16: the unsharded model's own
+        # distance from f32 sets the scale of what the kernels may move
+        noise = (ref_small[1] - ref_small_f32[1]).abs().max().item()
+        print(f"[15a rank {r}] f32 2+2 layers, n_model=2, +kv8+flash: tokens "
+              f"{'identical' if torch.equal(gen, ref_small[0]) else 'DIFFER'}, maps max|d| "
+              f"{d:.3g} from the unsharded +kv8+flash (bar max(1e-5, 1.5 x {noise:.3g}, the "
+              f"unsharded +kv8+flash's distance from f32))")
+        bar(torch.equal(gen, ref_small[0]) and d <= max(1e-5, 1.5 * noise),
+            "15a: f32 TP +kv8+flash disagrees")
+        gen, maps, _ = out["a_full"]
+        same = [b for b in range(4) if torch.equal(gen[b], ref_full[0][b])]
+        cos = [_cos(maps[b], ref_full[1][b]) for b in range(4)]
+        print(f"[15a rank {r}] bf16 full depth, n_model=2: samples with the unsharded "
+              f"tokens {same}, maps cos on them {[f'{cos[b]:.6f}' for b in same]} (bar "
+              f"0.999); the others {[f'{cos[b]:.6f}' for b in range(4) if b not in same]}")
+        bar(all(cos[b] > 0.999 for b in same), "15a: bf16 TP maps drift")
+        rows = out["a_full_rows"][1]
+        cos = [_cos(rows[b], ref_rows[1][b]) for b in range(4)]
+        wrong = [_cos(out["a_wrong_rows"][1][b], ref_rows[1][b]) for b in range(4)]
+        # a floor against a wrong cut of the heads: the planted one (each
+        # rank reading the other's kv heads) must fall below it
+        print(f"[15a rank {r}] bf16 full depth, n_model=2, the prefill's layer-20 maps (no "
+              f"token to turn): cos {[f'{c:.6f}' for c in cos]} (bar {P15_ROWS_FLOOR}); with "
+              f"the planted wrong cut of the kv heads {[f'{c:.6f}' for c in wrong]} (must be "
+              f"below the bar)")
+        bar(min(cos) > P15_ROWS_FLOOR, "15a: bf16 TP prefill maps drift")
+        bar(max(wrong) < P15_ROWS_FLOOR, "15a: the prefill maps' floor misses a wrong cut")
+        p = out["a_pipe"]
+        want = {"warp_resample": 1, "flash_prefill": 2 * k2_pass,
+                "decode_attn_int8": 20 * (L - 1) + 20 * L}
+        print(f"[15a rank {r}] two-pass pipeline: wall {p['wall']:.3f} s (pass 1 "
+              f"{p['pass1']:.3f}, pass 2 {p['pass2']:.3f}; {4 / p['wall']:.3f} samples/s), "
+              f"peak {p['peak'] / 2**30:.2f} GiB, gloo host-staged collectives {p['staged']} "
+              f"| launches: " + ", ".join(f"{k} {p[k]} (expected {want[k]})" for k in want))
+        bar(p["maps"].shape == (4, n_side, n_side) and bool(np.isfinite(p["maps"]).all())
+              and p["warped_shape"] == (4, 500, 500, 3) and p["warped_finite"],
+              "15a: pipeline outputs")
+        for k in want:
+            bar(p[k] == want[k], f"15a: {k} launch count")
+        paths[f"tp_llava_r{r}"] = {k: p[k] for k in want}
+        # 15b
+        logits, cache, rows = out["b_small"]
+        dl, dc, dr, m = ref_sp
+        el, er = (logits - dl).abs().max().item(), (rows - dr).abs().max().item()
+        valid = m.cpu()
+        lsb = max((a[:, :, :640][:, valid].int() - b[:, :, :640][:, valid].int()).abs().max().item()
+                  for a, b in ((cache[0], dc[0]), (cache[2], dc[2])))
+        es = max((a[:, :, :640][:, valid] - b[:, :, :640][:, valid]).abs().max().item()
+                 for a, b in ((cache[1], dc[1]), (cache[3], dc[3])))
+        print(f"[15b rank {r}] sp_prefill n=2, f32 2 layers, kv_quant: logits max|d| {el:.3g}, "
+              f"rows {er:.3g} (bar 1e-4); int8 cache max {lsb} LSB (bar 1), scales max|d| "
+              f"{es:.3g}")
+        bar(el <= 1e-4 and er <= 1e-4 and lsb <= 1, "15b: f32 ring prefill disagrees")
+        bd = out["b_decode"]
+        print(f"[15b rank {r}] bf16 full depth: ring prefill wall {bd['ring_wall']:.3f} s "
+              f"(peak {bd['ring_peak'] / 2**30:.2f} GiB, gloo host-staged collectives "
+              f"{bd['ring_staged']}); 20 decode steps from its int8 cache {bd['wall']:.3f} s, "
+              f"K3 {bd['decode_attn_int8']} (expected {20 * L})")
+        bar(bd["decode_attn_int8"] == 20 * L and bd["flash_prefill"] == 0, "15b: launches")
+        paths[f"sp_decode_r{r}"] = {k: bd[k] for k in counters}
+        # 15d
+        w = out["d_warp"]
+        print(f"[15d rank {r}] sharded warp, n_data=2, (4,512,640,3)->500^2: gathered "
+              f"{'bit-equal' if torch.equal(w['warped'], ref_warp) else 'DIFFERENT'} to the "
+              f"unsharded K1; K1 launches {w['warp_resample']} (expected 1), staged "
+              f"{w['staged']}")
+        bar(torch.equal(w["warped"], ref_warp) and w["warp_resample"] == 1, "15d: warp")
+        paths[f"sharded_warp_r{r}"] = {k: w[k] for k in counters}
+        for (shape, dtype), res in out["d_train"].items():
+            n = len(res["got"])
+            print(f"[15d rank {r}] sharded train (data, model) = {shape}, TrainConfig() "
+                  f"(hidden 256, 512 px), batch 16, {str(dtype)[6:]} compute, {n} step(s): "
+                  f"losses {[f'{m['loss/total']:.6f}' for m in res['got']]} vs one-device "
+                  f"{[f'{m['loss/total']:.6f}' for m in res['ref']]}, grad_norm "
+                  f"{[f'{m['grad_norm']:.6f}' for m in res['got']]} vs "
+                  f"{[f'{m['grad_norm']:.6f}' for m in res['ref']]}; metrics max rel|d| "
+                  f"{_metrics_rel(res):.3g}, params max|d| {res['d']:.3g} (atol 5e-2), "
+                  f"cos of the parameter change {res['cos_all']:.6f}, of the last step's "
+                  f"{res['cos_last']:.6f}")
+            bar(_train_ok(res, dtype), f"15d: train {shape} {dtype}")
+    b0 = ranks[0]["b_decode"]
+    dense = ranks[0]["b_dense"]
+    agree = int((b0["tokens"] == dense["tokens"]).all(dim=1).sum())
+    print(f"[15b] bf16 full depth against the dense prefill: logits cos "
+          f"{_cos(b0['logits'], dense['logits']):.6f}, rows cos "
+          f"{_cos(b0['rows'], dense['rows']):.6f}; {agree}/4 rows decode the same 21 tokens")
+    bar(bool(torch.isfinite(b0["logits"]).all()), "15b: logits not finite")
+
+    t0 = time.perf_counter()
+    (nc,) = run_ranks(_phase15_nccl, 1, (dev,), backend="nccl", timeout=600)
+    ok = (nc["collectives_ok"] and torch.equal(nc["gen"], ref_small[0])
+          and (nc["maps"] - ref_small[1]).abs().max().item() <= 1e-5
+          and (nc["logits"] - ref_sp[0]).abs().max().item() <= 1e-4
+          and torch.equal(nc["warped"], ref_warp)
+          and _train_ok(nc["train"], torch.bfloat16))
+    print(f"[15e] backend {nc['backend']}, world size 1 on {dev}: all_reduce, "
+          f"all_gather and broadcast on its tensors "
+          f"{'ok' if nc['collectives_ok'] else 'WRONG'}; 15a-15d at 2 layers on the (1, 1) "
+          f"mesh {'agree with the references' if ok else 'DISAGREE'} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    bar(nc["backend"] == "nccl" and ok, "15e: NCCL pass")
+    check(not fails, "; ".join(fails))
+    return paths
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_clone_tree(v) for v in t]
+    return t.clone()
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2504,6 +3131,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     _phase("9 serve parity", phase_serve_parity, dev)
     paths.update(_phase("13d hf", phase_hf))
+    paths.update(_phase("15 parallel", phase_parallel, dev))
     print(f"[all] wall {time.perf_counter() - t_all:.2f} s")
 
     def launches(name):
@@ -2516,19 +3144,21 @@ def main(argv=None) -> int:
          "replaces": "attwarp_tpu/ops/pallas_warp.py:87",
          **launches("warp_resample"), **k1["pipeline"],
          **{k: k1[k] for k in ("dataset_driver", "dataset_driver_683w", "warp_only",
-                               "chain_predict", "train_debug")}},
+                               "chain_predict", "train_debug", "sharded_warp")}},
         {"name": "flash_prefill", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "attwarp_tpu/models/llama.py:218",
          **launches("flash_prefill"), **k2["qwen7b"],
          **{k: k2[k] for k in ("llava7b", "llava7b_serve", "qwen7b_serve",
-                               "llava7b_dataset", "llava7b_sweep")}},
+                               "llava7b_dataset", "llava7b_sweep", "llava7b_tp2",
+                               "qwen7b_tp2")}},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/decode_attn_int8.cu",
          "replaces": "attwarp_tpu/ops/pallas_decode_attn.py:284",
          **launches("decode_attn_int8"), **k3["llava7b"],
          **{k: k3[k] for k in ("qwen7b", "llava7b_serve", "qwen7b_serve",
-                               "llava7b_dataset", "llava7b_dataset_serve")}},
+                               "llava7b_dataset", "llava7b_dataset_serve", "llava7b_tp2",
+                               "llava7b_disagg", "qwen7b_tp2")}},
     ]
     # the int8 product is a library call (torch._int_mm), not a kernel of
     # the port: its own line, beside the kernels'
