@@ -83,7 +83,8 @@ def cubic_weight_matrix(in_len: int, out_len: int) -> np.ndarray:
 
 def resize_cubic(att: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """A 2-D float32 map resized like ``jax.image.resize(att, out_hw,
-    "cubic")``, on the host: only the axes whose size changes."""
+    "cubic")``, on the host: only the axes whose size changes. Not
+    ``warp/blend.py::resize_cubic``, which is cv2's cubic (a = -0.75)."""
     x = np.asarray(att, np.float32)
     if x.shape[0] != out_hw[0]:
         x = cubic_weight_matrix(x.shape[0], out_hw[0]).T @ x

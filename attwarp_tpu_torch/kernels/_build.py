@@ -34,6 +34,13 @@ _SIGNATURES = {
     # img, map_x, map_y, out, B, H, W, C, H_out, W_out, rows, tile, slots,
     # cap, threads, smem, stream
     "attwarp_warp_resample": [_VOID] * 4 + [_INT] * 12 + [_VOID],
+    # g, img, map_x, map_y, grad_img, grad_map_x, grad_map_y, scratch, B, H,
+    # W, C, H_out, W_out, stream
+    "attwarp_warp_resample_backward": [_VOID] * 8 + [_INT] * 6 + [_VOID],
+    # B, H, W, H_out, W_out, need_img, need_map_x, bytes (long long*)
+    "attwarp_warp_resample_backward_scratch_bytes": [_INT] * 7 + [_VOID],
+    # count (int*): the kernels the backward has launched
+    "attwarp_warp_resample_backward_kernels": [_VOID],
     # q, k_q, k_s, v_q, v_s, mask, out, scratch, L, B, S, H, kvH, hd, layer,
     # n_split, chunk, sm_scale, stream
     "attwarp_decode_attn_int8": [_VOID] * 8 + [_INT] * 9

@@ -75,6 +75,23 @@ def k1_work(B: int, H: int, W: int, C: int, H_out: int,
     return nbytes, flops
 
 
+def k1_backward_work(B: int, H: int, W: int, C: int, H_out: int, W_out: int,
+                     need_image: bool, need_maps: bool) -> tuple[int, int]:
+    """Bytes and flops of K1's backward, all f32: ``g`` (B, H_out, W_out, C)
+    read, the image read if the maps need a gradient, its gradient written
+    if the image needs one, both maps read and their gradients written if
+    asked for. Per value of ``g``: the image gradient's two transposed
+    lerps (8 flops), the maps' two x lerps, their difference and the taps'
+    differences (16 flops)."""
+    n_g = B * H_out * W_out * C
+    n_img = B * H * W * C
+    n_maps = B * (H_out + W_out)
+    nbytes = 4 * (n_g + n_maps + (n_img + n_maps if need_maps else 0)
+                  + (n_img if need_image else 0))
+    flops = n_g * ((8 if need_image else 0) + (16 if need_maps else 0))
+    return nbytes, flops
+
+
 def w8a8_work(M: int, K: int, N: int, bias: bool = False, in_elem: int = 2,
               out_elem: int = 2) -> tuple[int, int]:
     """Bytes and int8 operations of one w8a8 linear (``numerics/quant.py::

@@ -5,13 +5,18 @@ W, C)`` f32 with per-sample source coordinates ``map_x (B, W_out)`` and
 ``map_y (B, H_out)`` into ``(B, H_out, W_out, C)`` f32, with
 ``cv2.remap(INTER_LINEAR, BORDER_REPLICATE)`` semantics.
 
-- CPU tensors: the plain version, ``warp/resample.py::remap_bilinear_separable``,
-  differentiable in the images and both maps.
-- CUDA tensors: ``csrc/warp_resample.cu``, or an exception. The kernel has
-  no backward, so where autograd is on and an input requires a gradient it
-  raises rather than return a result cut from the graph.
+- CPU tensors: the plain version, ``warp/resample.py::remap_bilinear_separable``.
+- CUDA tensors: ``csrc/warp_resample.cu``, or an exception.
 
 Replaces the TPU kernel ``attwarp_tpu/ops/pallas_warp.py::warp_batch_pallas_cf``.
+
+Differentiable in the images and both maps. On CPU tensors autograd runs
+through the plain version itself (higher-order gradients included). On
+CUDA tensors, where autograd is on and an input requires a gradient,
+``warp_resample`` goes through ``_K1Function``: K1's forward, and as its
+backward ``warp_resample_backward``, the kernels of
+``csrc/warp_resample_bwd.cu`` (no Pallas counterpart: JAX differentiates
+its gather form through XLA), computing only the gradients asked for.
 
 ``k1_plan`` cuts the work into blocks for a card of ``sm_count`` SMs: one
 block per (image, band of ``rows`` output rows, tile of ``tile`` output
@@ -21,10 +26,12 @@ in shared memory (see the CUDA source for what each part does).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from attwarp_tpu_torch.kernels._build import check_launch, library, require_cuda
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
@@ -117,25 +124,34 @@ def warp_resample(images: torch.Tensor, map_x: torch.Tensor,
     if images.device.type == "cpu":
         return remap_bilinear_separable(images, map_x, map_y)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (images, map_x, map_y)):
-        raise RuntimeError("warp_resample: kernel K1 has no backward yet, and an input "
-                           "requires a gradient; run it under torch.no_grad() (the CPU "
-                           "path is differentiable)")
+        return _K1Function.apply(images, map_x, map_y)
+    return _forward(images, map_x, map_y)
+
+
+def _check_inputs(name: str, images, map_x, map_y) -> None:
     if images.ndim != 4 or map_x.ndim != 2 or map_y.ndim != 2:
-        raise ValueError(f"warp_resample: want images (B, H, W, C), maps "
+        raise ValueError(f"{name}: want images (B, H, W, C), maps "
                          f"(B, n); got {tuple(images.shape)}, "
                          f"{tuple(map_x.shape)}, {tuple(map_y.shape)}")
     B, H, W, C = images.shape
     if map_x.shape[0] != B or map_y.shape[0] != B:
-        raise ValueError("warp_resample: maps must have the images' batch size")
-    for name, t in (("images", images), ("map_x", map_x), ("map_y", map_y)):
+        raise ValueError(f"{name}: maps must have the images' batch size")
+    for arg, t in (("images", images), ("map_x", map_x), ("map_y", map_y)):
         if t.dtype != torch.float32:
-            raise TypeError(f"warp_resample: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
     if H == 0 or W == 0:
-        raise ValueError("warp_resample: empty source image")
-    require_cuda("warp_resample", images, map_x, map_y)
+        raise ValueError(f"{name}: empty source image")
+    require_cuda(name, images, map_x, map_y)
     H_out, W_out = map_y.shape[1], map_x.shape[1]
     if max(H * W * C, H_out * W_out * C) >= 2**31:
-        raise ValueError("warp_resample: one image must hold fewer than 2^31 values")
+        raise ValueError(f"{name}: one image must hold fewer than 2^31 values")
+
+
+def _forward(images: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """K1 on CUDA tensors."""
+    _check_inputs("warp_resample", images, map_x, map_y)
+    B, H, W, C = images.shape
+    H_out, W_out = map_y.shape[1], map_x.shape[1]
     out = torch.empty((B, H_out, W_out, C), dtype=torch.float32,
                       device=images.device)
     if out.numel() == 0:
@@ -155,3 +171,98 @@ def warp_resample(images: torch.Tensor, map_x: torch.Tensor,
 
 
 warp_resample.launches = 0
+
+
+class _K1Function(torch.autograd.Function):
+    """K1's forward and ``warp_resample_backward``, bound into autograd
+    (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, images, map_x, map_y):
+        ctx.save_for_backward(images, map_x, map_y)
+        return _forward(images, map_x, map_y)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return warp_resample_backward(grad, *ctx.saved_tensors, *ctx.needs_input_grad)
+
+
+def warp_resample_backward_plain(grad: torch.Tensor, images: torch.Tensor, map_x: torch.Tensor,
+                                 map_y: torch.Tensor, need_images: bool = True,
+                                 need_map_x: bool = True, need_map_y: bool = True):
+    """The plain version of K1's backward: autograd of
+    ``remap_bilinear_separable`` on any device. Returns ``(grad_images,
+    grad_map_x, grad_map_y)``, None where not asked for."""
+    with torch.enable_grad():
+        leaves = (images.detach().requires_grad_(need_images),
+                  map_x.detach().requires_grad_(need_map_x),
+                  map_y.detach().requires_grad_(need_map_y))
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(remap_bilinear_separable(*leaves), wanted, grad)
+                   if wanted else ())
+    return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+def warp_resample_backward(grad: torch.Tensor, images: torch.Tensor, map_x: torch.Tensor,
+                           map_y: torch.Tensor, need_images: bool = True,
+                           need_map_x: bool = True, need_map_y: bool = True):
+    """The gradients of ``warp_resample(images, map_x, map_y)`` given
+    ``grad = dL/dout (B, H_out, W_out, C)``: ``(grad_images, grad_map_x,
+    grad_map_y)``, None where not asked for. CPU tensors:
+    ``warp_resample_backward_plain``. CUDA tensors: the kernels of
+    ``csrc/warp_resample_bwd.cu`` (two for the image gradient, one for
+    grad_map_y, two for grad_map_x or both maps'), or an exception; a shape
+    the kernels do not take (see the source) raises from the launch."""
+    if images.device.type == "cpu":
+        return warp_resample_backward_plain(grad, images, map_x, map_y, need_images,
+                                            need_map_x, need_map_y)
+    _check_inputs("warp_resample_backward", images, map_x, map_y)
+    B, H, W, C = images.shape
+    H_out, W_out = map_y.shape[1], map_x.shape[1]
+    if tuple(grad.shape) != (B, H_out, W_out, C):
+        raise ValueError(f"warp_resample_backward: grad must be {(B, H_out, W_out, C)}, "
+                         f"got {tuple(grad.shape)}")
+    g = grad.to(torch.float32).contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    require_cuda("warp_resample_backward", g, images)
+    dev = images.device
+    gi = torch.empty_like(images) if need_images else None
+    gx = torch.empty_like(map_x) if need_map_x else None
+    gy = torch.empty_like(map_y) if need_map_y else None
+    if gi is None and gx is None and gy is None:
+        return gi, gx, gy
+    if g.numel() == 0:
+        return tuple(None if t is None else t.zero_() for t in (gi, gx, gy))
+    lib = library()
+    nbytes = ctypes.c_longlong()
+    check_launch(lib.attwarp_warp_resample_backward_scratch_bytes(
+        B, H, W, H_out, W_out, need_images, need_map_x, ctypes.addressof(nbytes)),
+        "warp_resample_backward")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.attwarp_warp_resample_backward(
+            g.data_ptr(), images.data_ptr(), map_x.data_ptr(), map_y.data_ptr(),
+            ptr(gi), ptr(gx), ptr(gy), ptr(scratch), B, H, W, C, H_out, W_out, stream,
+        )
+    check_launch(rc, "warp_resample_backward")
+    warp_resample_backward.launches += 1
+    return gi, gx, gy
+
+
+warp_resample_backward.launches = 0
+
+
+def backward_kernels_launched() -> int:
+    """The kernels ``warp_resample_backward`` has launched on the card since
+    the kernel library was loaded, as the library counts them."""
+    count = ctypes.c_int()
+    check_launch(library().attwarp_warp_resample_backward_kernels(ctypes.addressof(count)),
+                 "warp_resample_backward")
+    return count.value

@@ -5,11 +5,11 @@ A low-resolution attention map is min-normalized, z-score-enhanced through
 a sigmoid, box-filtered with replicate padding, quantized to uint8 as
 torchvision's ``ToPILImage`` does (truncation), and resized to the image
 with PIL's LANCZOS, which quantizes to uint8 between its two passes. Every
-linear stage is a constant matrix built in numpy (``replicate_fir_matrix``
-and ``_lanczos_matrix_np`` are copies: ``attwarp_tpu.warp.blend`` imports
-JAX) and applied as f32 matmuls. On the card those matmuls need
-``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default):
-TF32 would cost the 1-LSB mask parity.
+linear stage is a constant matrix built in numpy (``replicate_fir_matrix``,
+``_lanczos_matrix_np`` and cv2's cubic, ``_cubic_matrix_np``, are copies:
+``attwarp_tpu.warp.blend`` imports JAX) and applied as f32 matmuls. On
+the card those matmuls need ``torch.backends.cuda.matmul.allow_tf32 =
+False`` (PyTorch's default): TF32 would cost the 1-LSB mask parity.
 
 Functions take a leading batch dimension: ``mota_mask`` maps ``(B, h, w)``
 to ``(B, H, W)``. ``blend_mask`` (one image's mask and JET overlay, the
@@ -138,6 +138,45 @@ def resize_lanczos(x: torch.Tensor, out_hw: Tuple[int, int],
         tmp = _clip8(torch.matmul(x, Lx.T))
         return _clip8(torch.matmul(Ly, tmp))
     return torch.matmul(torch.matmul(Ly, x), Lx.T)
+
+
+def _keys_cubic(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys' bicubic kernel; a = -0.75 is cv2's INTER_CUBIC (a copy of the
+    JAX package's ``warp/blend.py::_keys_cubic``)."""
+    t = np.abs(np.asarray(t, np.float64))
+    return np.where(
+        t <= 1.0,
+        (a + 2.0) * t**3 - (a + 3.0) * t**2 + 1.0,
+        np.where(t < 2.0, a * t**3 - 5.0 * a * t**2 + 8.0 * a * t - 4.0 * a, 0.0),
+    )
+
+
+@lru_cache(maxsize=64)
+def _cubic_matrix_np(in_len: int, out_len: int) -> np.ndarray:
+    """(out_len, in_len) cv2-INTER_CUBIC resampling matrix in float64:
+    half-pixel centres, Keys a = -0.75, taps clamped at the border."""
+    scale = in_len / out_len
+    M = np.zeros((out_len, in_len), dtype=np.float64)
+    for i in range(out_len):
+        s = (i + 0.5) * scale - 0.5
+        x0 = int(np.floor(s))
+        d = s - x0
+        for j in (-1, 0, 1, 2):
+            M[i, min(max(x0 + j, 0), in_len - 1)] += _keys_cubic(j - d)
+    return M
+
+
+def resize_cubic(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Separable bicubic resize ``(..., H, W) -> (..., *out_hw)`` with cv2's
+    kernel, as two f32 matmuls on ``x``'s device. Not
+    ``extract/resize.py::resize_cubic``, which is ``jax.image.resize``'s
+    cubic (a = -0.5, no border clamp) for the layer sweep."""
+    out_h, out_w = out_hw
+    H, W = x.shape[-2], x.shape[-1]
+    x = x.to(torch.float32)
+    Cy = _const(_cubic_matrix_np(H, out_h), x)
+    Cx = _const(_cubic_matrix_np(W, out_w), x)
+    return torch.matmul(torch.matmul(Cy, x), Cx.T)
 
 
 def quantize_uint8_trunc(x: torch.Tensor) -> torch.Tensor:

@@ -90,8 +90,9 @@ def warp_from_cdf(
     ``images (B, H, W, C)``, ``Fx (B, W)`` and ``Fy (B, H)`` CDFs in [0, 1]
     -> ``(B, H_out, W_out, C)`` f32 (``out_size`` ``(H_out, W_out)``, or
     ``(H, W)``). Every sample's maps, then one ``warp_resample`` for the
-    batch: K1 on a CUDA tensor, its plain version (differentiable) on a CPU
-    tensor."""
+    batch: K1 on a CUDA tensor, its plain version on a CPU tensor; both
+    differentiable in the images and the CDFs (K1's backward kernel on the
+    card)."""
     H, W = images.shape[1], images.shape[2]
     H_out, W_out = (H, W) if out_size is None else out_size
     map_x = inverse_axis_map_from_cdf(Fx, W_out, tie_jitter=tie_jitter)

@@ -169,9 +169,32 @@ NVIDIA GPU.
     (world size 1): all_reduce, all_gather and broadcast on CUDA tensors,
     then 15a-15d's code at 2 layers. A failing or hung rank fails the
     step.
+16. The ablations and K1's backward. 16a: ``run_cross_attention_warp``
+    with ``make_sd_capture_fn`` over the stub pipeline at Stable Diffusion
+    2.1's cross-attention geometry (``testing/sd_stub.py``: 16 attn2 layers
+    a UNet evaluation, 5 at 96^2 with 5 heads, 5 at 48^2 with 10, 5 at
+    24^2 with 20, 1 at 12^2 with 20, batch 2, 77 tokens; random
+    projections, no weights) at the JAX defaults (timesteps 999..200, 10
+    denoise steps, a 768 px latent image), on a 683x1024 image, top_k 20,
+    iterations 1 and 3: K1 1 and 3 and nothing else, iterates finite, in
+    range and 500x500x3, iterate 1 of 3 within the warp budget of the
+    single pass, the card within 1e-5 (map) and the warp budget
+    (iterates) of the port's CPU path on the same captured maps; walls of
+    the capture, importance + aggregation, the conditioning and each
+    iterate. 16b: K1's backward against autograd of its plain version at
+    the pipeline's (4,512,640,3) -> 500^2 with all three gradients, a
+    ``predict_and_warp`` chunk's (10,512,512,3) -> 512^2 and 16c's
+    (16,512,512,3) -> 512^2 maps only, and a 683x1024 photo -> 500^2 image
+    only: image gradient within 1e-5 and map gradients within 1e-4 of the
+    reference's largest magnitude, two calls bit-equal, the kernels of a
+    call as the kernel library counts them equal to the design's, timed as
+    steps 3-5 with ``F.grid_sample``'s backward beside it. 16c: JAX's two ``tests/test_warp_grad.py`` settings at full size
+    through ``warp_batch_by_attention`` ((4,512,640,3), 24x24 attention)
+    and ``warp_from_cdf`` ((16,512,512,3)) against the plain path on the
+    card, within 1e-4, K1 and its backward one launch each.
 
 The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 13a, 13b,
-7, 8 (Qwen), 14c, 13c, 9, 13d, 15.
+7, 8 (Qwen), 14c, 13c, 9, 13d, 15, 16.
 
 Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
@@ -180,7 +203,8 @@ its plain version, the least time the card could take
 for the same work (``kernels/roofline.py``: bytes over 3.35 TB/s or
 operations over the peak rate of their type, whichever is larger) and one
 PyTorch call computing the same function where there is one:
-``F.grid_sample`` for K1 (timed with L2 warm too, ``library_warm_ms``) and
+``F.grid_sample`` for K1 and its backward for K1's backward (timed with L2
+warm too, ``library_warm_ms``) and
 ``F.scaled_dot_product_attention`` (fastest backend that takes a bool
 mask) for K2, each checked to agree with the plain version; none for K3.
 
@@ -3071,6 +3095,346 @@ def _leaves(tree):
         yield tree
 
 
+# ── step 16: the ablations and K1's backward ────────────────────────────
+
+PIX_TOL = 1e-3 * 255          # the repo's warp budget: 1e-3 on [0, 1] pixels
+XATTN_PROMPT = "a red tag with a white code on a wooden shelf"
+# the timed shapes of K1's backward: (name, (B, H, W), S, K1 input kind,
+# (need_images, need_map_x, need_map_y))
+K1B_SHAPES = (("pipeline", (4, 512, 640), 500, "pipeline", (True, True, True)),
+              # a predict_and_warp chunk under a MarginalNet loss: maps only
+              ("chain_predict", (10, 512, 512), 512, "chain_predict", (False, True, True)),
+              # 16c's warp_grad_cdf batch, maps only
+              ("warp_grad_cdf", (16, 512, 512), 512, "chain_predict", (False, True, True)),
+              # a 683x1024 photo: the image alone
+              ("photo_683w", (1, 1024, 683), 500, "dataset_driver_683w", (True, False, False)))
+
+
+def _counters16():
+    from attwarp_tpu_torch.kernels.warp_resample import warp_resample_backward
+
+    return {**_counters(), "warp_resample_backward": warp_resample_backward}
+
+
+class _walls:
+    """Wraps module functions for one ``with`` block so that each call's
+    wall (host clock, ending in a device sync) is appended under its name."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.seconds = {}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.targets]
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+                return out
+            return call
+
+        for mod, name, fn in self.saved:
+            setattr(mod, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_xattn(dev):
+    """16a: ``run_cross_attention_warp`` end to end on the card with
+    ``make_sd_capture_fn`` over the stub pipeline at SD 2.1's cross-attention
+    geometry (``testing/sd_stub.py``: 16 attn2 layers a UNet evaluation,
+    batch 2, 77 tokens), the JAX defaults (timesteps 999..200, 4 snapshots,
+    10 denoise steps, a 768 px latent image), a 683x1024 photo, top_k 20,
+    iterations 1 and 3. Checks launches (K1 = iterations, nothing else), the
+    captured maps, the iterates (finite, in the image's range, 500x500x3),
+    the map's span, iterate 1 of 3 against the single pass, and the card
+    against the port's CPU path on the same captured maps."""
+    import numpy as np
+    import torch
+
+    from attwarp_tpu_torch.testing.sd_stub import SAMPLE_SIZE, SD21StubPipeline, attn2_layers
+    from attwarp_tpu_torch.warp import cross_attention, iterative
+    from attwarp_tpu_torch.warp.sd_capture import DEFAULT_TIMESTEPS, make_sd_capture_fn
+
+    t0 = time.perf_counter()
+    pipe = SD21StubPipeline(device=dev, seed=0)
+    capture = make_sd_capture_fn(pipe=pipe, device=dev)
+    print(f"[16a xattn] stub pipeline at SD 2.1's geometry built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    image = np.random.default_rng(16).integers(0, 256, (1024, 683, 3), dtype=np.uint8)
+    counters = _counters16()
+    paths, runs = {}, {}
+    for iterations in (1, 3):
+        kept = {}
+
+        def timed_capture(img, prompt):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            kept["maps"] = capture(img, prompt)
+            torch.cuda.synchronize()
+            kept["capture_s"] = time.perf_counter() - t
+            return kept["maps"]
+
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with _walls((cross_attention, "compute_token_importance"),
+                    (cross_attention, "aggregate_attention_map_for_tokens"),
+                    (cross_attention, "condition_attention_map"),
+                    (iterative, "warp_image_by_attention")) as w:
+            t = time.perf_counter()
+            outs, att = cross_attention.run_cross_attention_warp(
+                image, XATTN_PROMPT, timed_capture, top_k=20, iterations=iterations,
+                width=500, height=500, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counters.items()}
+        s = w.seconds
+        maps = kept["maps"]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[16a xattn] iterations {iterations}: wall {wall:.3f} s | capture "
+              f"{kept['capture_s']:.3f} s | importance + aggregation "
+              f"{s['compute_token_importance'][0] + s['aggregate_attention_map_for_tokens'][0]:.4f} s"
+              f" | conditioning {s['condition_attention_map'][0]:.4f} s | iterates "
+              + ", ".join(f"{x * 1e3:.2f}" for x in s["warp_image_by_attention"])
+              + f" ms | launches " + ", ".join(f"{k} {v}" for k, v in launches.items())
+              + f" | peak memory {peak / 2**30:.2f} GiB")
+        check(launches == {"warp_resample": iterations, "flash_prefill": 0,
+                           "decode_attn_int8": 0, "warp_resample_backward": 0},
+              "16a: launch counts")
+        check(sorted(maps) == sorted(DEFAULT_TIMESTEPS[1:]), "16a: captured timesteps")
+        for layers in maps.values():
+            check(len(layers) == 16, "16a: 16 attn2 layers a snapshot")
+            for name, level, _, heads in attn2_layers():
+                side = SAMPLE_SIZE >> level
+                check(tuple(layers[name].shape) == (2, heads, side, side, 77)
+                      and layers[name].device.type == "cuda", f"16a: map {name}")
+        check(len(outs) == iterations, "16a: iterates")
+        for o in outs:
+            check(tuple(o.shape) == (500, 500, 3) and bool(torch.isfinite(o).all()),
+                  "16a: an iterate is not finite or not 500x500x3")
+            check(float(o.min()) >= -1e-3 and float(o.max()) <= 255 + 1e-3,
+                  "16a: an iterate leaves the image's range")
+        check(tuple(att.shape) == (1024, 683) and abs(float(att.min())) <= 1e-6
+              and abs(float(att.max()) - 1.0) <= 1e-6, "16a: the conditioned map spans [0, 1]")
+        paths[f"xattn_warp_{iterations}"] = launches
+        runs[iterations] = (outs, att, maps)
+    d13 = float((runs[3][0][0] - runs[1][0][0]).abs().max())
+    print(f"[16a xattn] iterate 1 of 3 vs the single pass: max|d| {d13:.4g} (tol {PIX_TOL:.3g})")
+    check(d13 <= PIX_TOL, "16a: iterate 1 of 3 differs from the single pass")
+    # the port's CPU path on the card's captured maps
+    outs, att, maps = runs[3]
+    host = {t: {k: v.cpu() for k, v in d.items()} for t, d in maps.items()}
+    c_outs, c_att = cross_attention.run_cross_attention_warp(
+        image, XATTN_PROMPT, lambda img, prompt: host, top_k=20, iterations=3, width=500,
+        height=500, device="cpu")
+    d_att = float((att.cpu() - c_att).abs().max())
+    d_out = max(float((o.cpu() - c).abs().max()) for o, c in zip(outs, c_outs))
+    print(f"[16a xattn] card vs the CPU path on the same maps: conditioned map max|d| "
+          f"{d_att:.4g} (tol 1e-5), iterates max|d| {d_out:.4g} (tol {PIX_TOL:.3g})")
+    check(d_att <= 1e-5, "16a: the conditioned map disagrees with the CPU path")
+    check(d_out <= PIX_TOL, "16a: the iterates disagree with the CPU path")
+    del runs, maps, host, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _k1b_case(dev, name, B, H, W, S, kind, needs):
+    """K1's backward against its plain version (autograd of
+    ``remap_bilinear_separable`` on the same CUDA tensors) at one shape, two
+    calls bit-equal, the kernels of one call as the library counts them
+    against the design's; timed with L2 flushed and warm beside its plain
+    version, its bound and ``F.grid_sample``'s backward
+    (``aten.grid_sampler_2d_backward`` on the full 2-D grid, its grid
+    gradient summed back to the two maps to check it)."""
+    import torch
+
+    from attwarp_tpu_torch.kernels import roofline
+    from attwarp_tpu_torch.kernels.warp_resample import (
+        backward_kernels_launched,
+        warp_resample_backward,
+        warp_resample_backward_plain,
+    )
+
+    need_images, need_x, need_y = needs
+    need_maps = need_x or need_y
+    img, mx, my = _k1_inputs(dev, kind, B, H, W, S)
+    g = torch.randn((B, S, S, 3), generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    args = (g, img, mx, my, *needs)
+    k0 = backward_kernels_launched()
+    got = warp_resample_backward(*args)
+    per_call = backward_kernels_launched() - k0
+    # the design: taps and image gradient, the maps' band pass, grad_map_x's band sums
+    design = 2 * need_images + need_maps + need_x
+    check(per_call == design, f"16b: {per_call} kernels a call, the design says {design} ({name})")
+    again = warp_resample_backward(*args)
+    ref = warp_resample_backward_plain(*args)
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for k, (a, b, r) in enumerate(zip(got, again, ref)):
+        if r is None:
+            check(a is None, f"16b: a gradient not asked for was computed ({name})")
+            continue
+        err = (a - r).abs().max().item()
+        rel = err / r.abs().max().item()
+        errs.append(err)
+        rels.append(rel)
+        check(rel <= (1e-5 if k == 0 else 1e-4), f"16b: K1 backward disagrees ({name}, {k})")
+        check(torch.equal(a, b), f"16b: two calls of K1 backward differ ({name}, {k})")
+    # the yardstick: grid_sample's backward, NCHW, border padding,
+    # align_corners (as K1's forward yardstick)
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack(((2 * mx / (W - 1) - 1)[:, None, :].expand(B, S, S),
+                        (2 * my / (H - 1) - 1)[:, :, None].expand(B, S, S)), -1).contiguous()
+    mask = [need_images, bool(need_maps)]
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 1, True, mask)
+
+    li, lg = library()
+    lib_rel, skipped = [], []
+    if need_images:
+        lib_rel.append(((li.permute(0, 2, 3, 1) - ref[0]).abs().max() / ref[0].abs().max()).item())
+    if need_maps:
+        # where a coordinate lies on a pixel boundary the derivative is
+        # one-sided: the plain version takes the difference to the right
+        # (floor), grid_sample's clip gives 0 at the border, and its
+        # normalized grid may round a coordinate to either side of an
+        # integer. Held at coordinates inside the image and more than 1e-3
+        # from an integer.
+        for m, n, lgm, r, dim in ((mx, W, lg[..., 0], ref[1], 1), (my, H, lg[..., 1], ref[2], 2)):
+            held = (m > 0) & (m < n - 1) & ((m - torch.round(m)).abs() > 1e-3)
+            lm = lgm.sum(dim) * (2.0 / (n - 1))
+            lib_rel.append(((lm - r).abs() * held).max().item() / r.abs().max().item())
+            skipped.append(int((~held).sum()))
+    t = alternate_ms({"plain": lambda: warp_resample_backward_plain(*args),
+                      "kernel": lambda: warp_resample_backward(*args), "library": library},
+                     20, cold=True)
+    warm = alternate_ms({"kernel": lambda: warp_resample_backward(*args), "library": library}, 20)
+    work = roofline.k1_backward_work(B, H, W, 3, S, S, need_images, need_maps)
+    e = with_bound({"max_abs_err": max(errs), "max_rel_err": max(rels), "ms": t["kernel"],
+                    "warm_ms": warm["kernel"], "plain_ms": t["plain"],
+                    "library_ms": t["library"], "library_warm_ms": warm["library"],
+                    "library": "F.grid_sample backward (aten.grid_sampler_2d_backward)",
+                    "library_max_rel_err": max(lib_rel),
+                    "library_unheld_map_entries": sum(skipped), "need_images": need_images,
+                    "need_maps": need_maps, "kernels_per_call": per_call},
+                   work, roofline.F32_FLOPS)
+    print(f"[16b K1 backward] {name} ({B},{H},{W},3)->({B},{S},{S},3) image grad "
+          f"{need_images}, map grads {need_maps}: {per_call} kernels a call (library's "
+          f"count; design {design}) | max rel err {max(rels):.3g} (tol image 1e-5, maps 1e-4), two "
+          f"calls bit-equal | grid_sample backward vs plain {max(lib_rel):.3g} ("
+          f"{sum(skipped)} map entries on a pixel boundary not held) | kernel "
+          f"{t['kernel']:.4f} ms (L2 warm {warm['kernel']:.4f}), plain {t['plain']:.4f} ms"
+          + _bound_text(e) + f" (L2 warm {warm['library']:.4f})")
+    check(max(lib_rel) <= 1e-3, "16b: the grid_sample yardstick computes another function")
+    del img, mx, my, g, got, again, ref, g_nchw, img_nchw, grid, li, lg
+    return e
+
+
+def phase_k1_backward(dev):
+    """16b: K1's backward at its four timed shapes (``K1B_SHAPES``)."""
+    import torch
+
+    out = {name: _k1b_case(dev, name, *shape, S, kind, needs)
+           for name, shape, S, kind, needs in K1B_SHAPES}
+    _flush_buf.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_warp_grad(dev):
+    """16c: gradients through the product's entry points on the card, JAX's
+    two ``tests/test_warp_grad.py`` settings at full size, against the same
+    losses through the plain path (grid maps, then
+    ``remap_bilinear_separable``) on the card: finite, non-zero, within 1e-4
+    of the reference's largest magnitude, K1 and its backward one launch
+    each (its kernels: 4 with the image's gradient, 2 for the maps alone, as
+    the library counts them)."""
+    import torch
+
+    from attwarp_tpu_torch.kernels.warp_resample import backward_kernels_launched
+    from attwarp_tpu_torch.numerics.cdf import cdf_from_density
+    from attwarp_tpu_torch.warp.grid import inverse_axis_map_from_cdf
+    from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
+    from attwarp_tpu_torch.warp.warp import (
+        warp_batch_by_attention,
+        warp_from_cdf,
+        warp_grid_maps,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    img = torch.rand((4, 512, 640, 3), generator=gen, device=dev) * 255.0
+    att = torch.rand((4, 24, 24), generator=gen, device=dev) + 0.1
+    img16 = torch.rand((16, 512, 512, 3), generator=gen, device=dev) * 255.0
+    p = torch.rand((16, 512), generator=gen, device=dev) + 0.1
+
+    def batch_loss(warp, i, a):
+        return torch.sum(warp(i, a) ** 2)
+
+    def cdf_loss(warp, q):
+        F_ = cdf_from_density(q)
+        return torch.mean((warp(F_) - img16) ** 2)
+
+    cases = {
+        "warp_grad_batch": (
+            lambda i, a: batch_loss(lambda x, y: warp_batch_by_attention(x, y, 500, 500), i, a),
+            lambda i, a: batch_loss(lambda x, y: remap_bilinear_separable(
+                x, *warp_grid_maps(y, (512, 640), 500, 500)), i, a),
+            (img, att), 4),
+        "warp_grad_cdf": (
+            lambda q: cdf_loss(lambda F_: warp_from_cdf(img16, F_, F_, tie_jitter=False), q),
+            lambda q: cdf_loss(lambda F_: remap_bilinear_separable(
+                img16, inverse_axis_map_from_cdf(F_, 512, tie_jitter=False),
+                inverse_axis_map_from_cdf(F_, 512, tie_jitter=False)), q),
+            (p,), 2),
+    }
+    counters = _counters16()
+    paths = {}
+    for tag, (loss, plain_loss, inputs, design) in cases.items():
+        leaves = [x.clone().requires_grad_(True) for x in inputs]
+        for fn in counters.values():
+            fn.launches = 0
+        k0 = backward_kernels_launched()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(loss(*leaves), leaves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        kernels = backward_kernels_launched() - k0
+        ref_leaves = [x.clone().requires_grad_(True) for x in inputs]
+        refs = torch.autograd.grad(plain_loss(*ref_leaves), ref_leaves)
+        rels = [((gr - r).abs().max() / r.abs().max()).item() for gr, r in zip(grads, refs)]
+        print(f"[16c {tag}] forward + backward {wall * 1e3:.2f} ms | max rel err vs the plain "
+              "path " + ", ".join(f"{x:.3g}" for x in rels) + " (tol 1e-4) | launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items())
+              + f" | backward kernels {kernels} (design {design})")
+        check(kernels == design, f"16c {tag}: backward kernels")
+        for gr in grads:
+            check(bool(torch.isfinite(gr).all()) and gr.abs().max().item() > 0,
+                  f"16c {tag}: a gradient is not finite or is zero")
+        check(max(rels) <= 1e-4, f"16c {tag}: gradients disagree with the plain path")
+        check(launches == {"warp_resample": 1, "flash_prefill": 0, "decode_attn_int8": 0,
+                           "warp_resample_backward": 1}, f"16c {tag}: launch counts")
+        paths[tag] = launches
+    del img, att, img16, p
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3132,6 +3496,9 @@ def main(argv=None) -> int:
     _phase("9 serve parity", phase_serve_parity, dev)
     paths.update(_phase("13d hf", phase_hf))
     paths.update(_phase("15 parallel", phase_parallel, dev))
+    paths.update(_phase("16a xattn", phase_xattn, dev))
+    k1b = _phase("16b K1 backward", phase_k1_backward, dev)
+    paths.update(_phase("16c warp grad", phase_warp_grad, dev))
     print(f"[all] wall {time.perf_counter() - t_all:.2f} s")
 
     def launches(name):
@@ -3145,6 +3512,11 @@ def main(argv=None) -> int:
          **launches("warp_resample"), **k1["pipeline"],
          **{k: k1[k] for k in ("dataset_driver", "dataset_driver_683w", "warp_only",
                                "chain_predict", "train_debug", "sharded_warp")}},
+        {"name": "warp_resample_backward", "route": "cuda",
+         "source": "attwarp_tpu_torch/csrc/warp_resample_bwd.cu",
+         "replaces": "XLA autodiff of attwarp_tpu/warp/resample.py:42 (no Pallas backward)",
+         **launches("warp_resample_backward"), **k1b["pipeline"],
+         **{k: k1b[k] for k in ("chain_predict", "warp_grad_cdf", "photo_683w")}},
         {"name": "flash_prefill", "route": "cuda",
          "source": "attwarp_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "attwarp_tpu/models/llama.py:218",

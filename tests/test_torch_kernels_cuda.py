@@ -15,7 +15,13 @@ import torch
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
-from attwarp_tpu_torch.kernels.warp_resample import k1_plan, warp_resample
+from attwarp_tpu_torch.kernels.warp_resample import (
+    backward_kernels_launched,
+    k1_plan,
+    warp_resample,
+    warp_resample_backward,
+    warp_resample_backward_plain,
+)
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
 from attwarp_tpu_torch.warp.warp import warp_grid_maps
 
@@ -291,27 +297,143 @@ def test_wrappers_reject_bad_cuda_input(cuda):
         flash_prefill(q2[..., :64], k2[..., :64], v2[..., :64], m2, 0.1)  # hd 64
 
 
+def _grad_close(got, ref, rel):
+    """Within ``rel`` of the reference's largest magnitude (exact where the
+    reference is all zeros)."""
+    return (got - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("needs_grad", ["images", "map_x", "map_y"])
-def test_k1_cuda_refuses_an_input_that_needs_a_gradient(cuda, needs_grad):
-    """K1 has no backward: with autograd on and an input that requires a
-    gradient it raises instead of returning a result cut from the graph;
-    under ``torch.no_grad()`` it launches, equal to the plain version."""
+@pytest.mark.parametrize("needs_grad", ["images", "map_x", "map_y", "all"])
+def test_k1_backward_cuda_matches_plain_autograd(cuda, needs_grad):
+    """With autograd on and an input that requires a gradient, K1 launches
+    its forward and, in the backward pass, its backward kernel: the
+    gradients of the inputs that need one within 1e-5 (image) and 1e-4
+    (maps: sums over W_out * C or H_out * C terms in another order) of the
+    plain version's autograd, None for the others."""
     g = np.random.default_rng(2)
-    t = {"images": torch.as_tensor(g.random((2, 24, 32, 3)).astype(np.float32), device=cuda),
-         "map_x": torch.linspace(-1.0, 32.0, 40, device=cuda).repeat(2, 1),
-         "map_y": torch.linspace(0.5, 23.5, 20, device=cuda).repeat(2, 1)}
-    t[needs_grad].requires_grad_(True)
-    before = warp_resample.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        warp_resample(t["images"], t["map_x"], t["map_y"])
-    assert warp_resample.launches == before
-    with torch.no_grad():
-        got = warp_resample(t["images"], t["map_x"], t["map_y"])
-        ref = remap_bilinear_separable(t["images"], t["map_x"], t["map_y"])
+    base = {"images": torch.as_tensor((g.random((2, 24, 32, 3)) * 255).astype(np.float32),
+                                      device=cuda),
+            "map_x": torch.as_tensor(g.uniform(-1.5, 32.5, (2, 40)).astype(np.float32),
+                                     device=cuda),
+            "map_y": torch.as_tensor(g.uniform(-1.5, 24.5, (2, 20)).astype(np.float32),
+                                     device=cuda)}
+    w = torch.as_tensor(g.standard_normal((2, 20, 40, 3)).astype(np.float32), device=cuda)
+    wants = list(base) if needs_grad == "all" else [needs_grad]
+
+    def run(fn):
+        t = {k: v.clone().requires_grad_(k in wants) for k, v in base.items()}
+        (fn(t["images"], t["map_x"], t["map_y"]) * w).sum().backward()
+        return {k: t[k].grad for k in base}
+
+    before = (warp_resample.launches, warp_resample_backward.launches)
+    got = run(warp_resample)
     torch.cuda.synchronize()
-    assert warp_resample.launches == before + 1
-    assert (got - ref).abs().max().item() <= 1e-3
+    assert (warp_resample.launches, warp_resample_backward.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    ref = run(remap_bilinear_separable)
+    for k in base:
+        if k not in wants:
+            assert got[k] is None
+            continue
+        assert _grad_close(got[k], ref[k], 1e-5 if k == "images" else 1e-4), k
+        assert ref[k].abs().max().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_hw,maps", [
+    ((2, 24, 32, 3), (30, 50), "clamped"),      # maps at -3 and n + 2: coincident taps
+    ((2, 40, 52, 3), (60, 70), "random"),       # non-monotone maps, inside and out
+    ((3, 40, 52, 3), (60, 70), "far"),          # far outside, any jumps
+    ((2, 64, 64, 3), (256, 256), "zoom4"),      # 4x zoom: many outputs share a source pixel
+    ((2, 1, 1, 3), (5, 7), "random"),           # 1x1 images
+    ((3, 37, 41, 1), (20, 30), "grid"),         # C = 1
+    ((128, 336, 336, 3), (336, 336), "grid"),   # B = 128 at 336 px
+], ids=["clamped", "nonmonotone", "far", "zoom4", "1x1", "c1", "b128_336"])
+def test_k1_backward_cuda_edges(cuda, shape, out_hw, maps):
+    """K1's backward against the plain version's autograd: the image's
+    gradient within 1e-5 and the maps' within 1e-4 of the reference's
+    largest magnitude, each of the three asked for alone, both maps, and all
+    together; two calls bit-equal (every sum in a fixed order), and the
+    kernels each call launches as the design says."""
+    g = np.random.default_rng(3)
+    B, H, W, C = shape
+    img = torch.as_tensor((g.random(shape) * 255).astype(np.float32), device=cuda)
+    if maps == "grid":
+        att = torch.as_tensor(g.random((B, 24, 24)).astype(np.float32), device=cuda)
+        mx, my = (m.contiguous() for m in warp_grid_maps(att, (H, W), out_hw[1], out_hw[0]))
+    elif maps == "clamped":
+        mx = torch.linspace(-3.0, W + 2.0, out_hw[1], device=cuda).repeat(B, 1)
+        my = torch.linspace(-3.0, H + 2.0, out_hw[0], device=cuda).repeat(B, 1)
+    else:
+        mx, my = (torch.as_tensor(m, device=cuda)
+                  for m in _k1_maps(g, maps, B, H, W, *out_hw))
+    grad = torch.as_tensor(g.standard_normal((B, *out_hw, C)).astype(np.float32), device=cuda)
+    ref = warp_resample_backward_plain(grad, img, mx, my)
+    for needs in ((True, True, True), (True, False, False), (False, True, True),
+                  (False, True, False), (False, False, True)):
+        before = warp_resample_backward.launches, backward_kernels_launched()
+        got = warp_resample_backward(grad, img, mx, my, *needs)
+        again = warp_resample_backward(grad, img, mx, my, *needs)
+        torch.cuda.synchronize()
+        assert (warp_resample_backward.launches, backward_kernels_launched()) == (
+            before[0] + 2, before[1] + 2 * _bwd_kernels(*needs))
+        for k, (a, b, r) in enumerate(zip(got, again, ref)):
+            if not needs[k]:
+                assert a is None
+                continue
+            assert _grad_close(a, r, 1e-5 if k == 0 else 1e-4), (k, needs)
+            assert torch.equal(a, b)
+
+
+def _bwd_kernels(need_images, need_map_x, need_map_y):
+    """The kernels one backward call launches, by the design of
+    ``csrc/warp_resample_bwd.cu``: taps and image gradient, the maps' band
+    pass, the band sums of grad_map_x."""
+    return 2 * need_images + (need_map_x or need_map_y) + need_map_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", [(True, True, True), (True, False, False),
+                                   (False, True, True), (False, False, True)],
+                         ids=["all", "image", "maps", "map_y"])
+def test_k1_backward_cuda_kernel_count_seen_by_the_profiler(cuda, needs):
+    """The kernels of one backward call, as CUDA's own activity trace
+    (``torch.profiler``) sees them, equal the library's count and the
+    design's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = np.random.default_rng(4)
+    img = torch.as_tensor(g.random((2, 40, 52, 3)).astype(np.float32), device=cuda)
+    mx = torch.as_tensor(g.uniform(-2.0, 54.0, (2, 70)).astype(np.float32), device=cuda)
+    my = torch.as_tensor(g.uniform(-2.0, 42.0, (2, 60)).astype(np.float32), device=cuda)
+    grad = torch.as_tensor(g.standard_normal((2, 60, 70, 3)).astype(np.float32), device=cuda)
+    warp_resample_backward(grad, img, mx, my, *needs)      # built and loaded
+    torch.cuda.synchronize()
+    before = backward_kernels_launched()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warp_resample_backward(grad, img, mx, my, *needs)
+        torch.cuda.synchronize()
+    names = ("taps_kernel", "grad_img_kernel", "grad_maps_kernel", "sum_bands_kernel")
+    seen = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names)]
+    assert len(seen) == backward_kernels_launched() - before == _bwd_kernels(*needs), seen
+
+
+@pytest.mark.cuda
+def test_k1_backward_cuda_rejects_what_it_cannot_take(cuda):
+    """An output row beyond the image gradient's shared memory (W_out * C >
+    56 Ki floats) is refused by the launch, which raises; the maps'
+    gradients alone take it."""
+    img = torch.rand((1, 2, 2, 3), device=cuda)
+    mx = torch.linspace(0.0, 1.0, 20000, device=cuda)[None]
+    my = torch.zeros((1, 1), device=cuda)
+    grad = torch.ones((1, 1, 20000, 3), device=cuda)
+    with pytest.raises(RuntimeError, match="warp_resample_backward"):
+        warp_resample_backward(grad, img, mx, my, True, False, False)
+    gx = warp_resample_backward(grad, img, mx, my, False, True, False)[1]
+    ref = warp_resample_backward_plain(grad, img, mx, my, False, True, False)[1]
+    assert _grad_close(gx, ref, 1e-4)
 
 
 @pytest.mark.cuda
