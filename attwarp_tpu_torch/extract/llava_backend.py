@@ -3,10 +3,13 @@
 
 ``extract(images, questions) -> (maps (B, n, n), texts)`` and the
 answer-only ``answer_batch`` over ``models/llava.py``; a sequence
-``extract_layer`` extracts every listed layer in one pass, maps (L, B, n, n). Images are either a
-``(B, S, S, C)`` tensor already resized to the vision tower's input (floats
-in [0, 1] or integers in [0, 255]), as the pipeline passes them, or a
-sequence of host images, which are resized on the model's device first.
+``extract_layer`` extracts every listed layer in one pass, maps (L, B, n, n).
+``extract_from_ids`` is the tokenizer-free API that ``extract`` calls after
+its own prompt assembly (``tools/bench_extract.py`` after its own). Images
+are either a ``(B, S, S, C)`` tensor already resized to the vision tower's
+input (floats in [0, 1] or integers in [0, 255]), as the pipeline passes
+them, or a sequence of host images, which are resized on the model's
+device first.
 ``_preprocess`` gives the serving engines one image's pixels, and
 ``save``/``load`` keep the checkpoint directory of ``extract/checkpoint.py``.
 ``from_hf`` loads an HF checkpoint (a local directory; nothing is
@@ -169,19 +172,27 @@ class LlavaBackend:
                 + [cfg.image_token_index] * cfg.num_image_tokens
                 + self.tokenizer.encode(post, add_special_tokens=False))
 
+    def _img_start(self, ids: torch.Tensor) -> torch.Tensor:
+        """(B,) each row's first image token: where its image span starts."""
+        return (ids == self.model.cfg.image_token_index).to(torch.int32).argmax(dim=1)
+
     def _prepare(self, images, questions):
         """Prompts -> expanded, left-padded ids (B, T), mask (B, T) bool,
-        image-span starts (B,) and CLIP-normalized pixels."""
-        cfg = self.model.cfg
+        image-span starts (B,) and CLIP-normalized pixels, on the model's
+        device."""
         padded, mask = left_pad([self.build_ids(q) for q in questions],
-                                pad_id=cfg.pad_token_id, bucket=64)
-        ids = np.asarray(padded, np.int64)
-        img_start = np.argmax(ids == cfg.image_token_index, axis=1)
+                                pad_id=self.model.cfg.pad_token_id, bucket=64)
         dev = self.device
-        return (torch.as_tensor(ids, device=dev),
-                torch.as_tensor(np.asarray(mask, bool), device=dev),
-                torch.as_tensor(img_start, device=dev),
-                clip_pixels(images, self.image_size, dev))
+        ids = torch.as_tensor(np.asarray(padded, np.int64), device=dev)
+        return (ids, torch.as_tensor(np.asarray(mask, bool), device=dev),
+                self._img_start(ids), clip_pixels(images, self.image_size, dev))
+
+    def _generate(self, ids, mask, img_start, pixels, extract_layer, max_new_tokens):
+        return self.model.generate_with_attention(
+            ids, pixels, mask, img_start, extract_layer=extract_layer,
+            max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
+            use_flash=self.use_flash,
+        )
 
     def _decode(self, gen: torch.Tensor) -> List[str]:
         texts = []
@@ -194,25 +205,31 @@ class LlavaBackend:
             texts.append(self.tokenizer.decode(out, skip_special_tokens=True).strip())
         return texts
 
+    def extract_from_ids(self, input_ids, attention_mask, pixel_values,
+                         max_new_tokens: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The tokenizer-free extraction: expanded, left-padded
+        ``input_ids`` (B, T), ``attention_mask`` (B, T) and CLIP-normalized
+        NHWC ``pixel_values`` (B, S, S, 3), each a numpy array or a tensor.
+        Returns (generated ids (B, max_new_tokens), maps (B, n, n); (L, B,
+        n, n) for a sequence of extract layers) on the model's device."""
+        dev = self.device
+        ids = torch.as_tensor(input_ids, device=dev).to(torch.int64)
+        mask = torch.as_tensor(attention_mask, device=dev).to(torch.bool)
+        pixels = torch.as_tensor(pixel_values, device=dev).to(torch.float32)
+        return self._generate(ids, mask, self._img_start(ids), pixels,
+                              self.extract_layer, max_new_tokens)
+
     def extract(self, images, questions: Sequence[str],
                 max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
-        ids, mask, img_start, pixels = self._prepare(images, questions)
-        gen, maps = self.model.generate_with_attention(
-            ids, pixels, mask, img_start, extract_layer=self.extract_layer,
-            max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
-            use_flash=self.use_flash,
-        )
+        ids, mask, _, pixels = self._prepare(images, questions)
+        gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
         return maps, self._decode(gen)
 
     def answer_batch(self, images, questions: Sequence[str],
                      max_new_tokens: int = 64) -> List[str]:
         """Answer-only greedy generate (``extract_layer=None``): no layer
         builds a probabilities row and nothing is accumulated."""
-        ids, mask, img_start, pixels = self._prepare(images, questions)
-        gen, _ = self.model.generate_with_attention(
-            ids, pixels, mask, img_start, extract_layer=None,
-            max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
-            use_flash=self.use_flash,
-        )
+        gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
+                                max_new_tokens=max_new_tokens)
         return self._decode(gen)
 

@@ -2,8 +2,9 @@
 ``attwarp_tpu/extract/qwen2vl_backend.py``).
 
 The same interface as ``extract/llava_backend.py``: ``device``,
-``image_size``, ``extract(images, questions) -> (maps (B, n, n), texts)`` and
-the answer-only ``answer_batch``; a sequence ``extract_layer`` extracts every
+``image_size``, ``extract(images, questions) -> (maps (B, n, n), texts)``,
+the tokenizer-free ``extract_from_ids`` that ``extract`` calls, and the
+answer-only ``answer_batch``; a sequence ``extract_layer`` extracts every
 listed layer in one pass, maps (L, B, n, n). The map's side follows the image: a
 ``size x size`` input gives ``size / (patch * merge)`` merged vision tokens a
 side (448 px -> 16x16, 672 px -> 24x24); the warp takes any grid.
@@ -191,17 +192,21 @@ class Qwen2VLBackend:
                 + [cfg.image_token_id] * self.num_patches_side ** 2
                 + [cfg.vision_end_token_id] + suffix)
 
-    def _prepare(self, images, questions):
+    def _prompt_ids(self, questions):
         """Prompts -> left-padded ids (B, T) and mask (B, T) bool on the
-        device; images -> patches (B, N, C*T*P*P) and their grid."""
+        device."""
         padded, mask = left_pad([self.build_ids(q) for q in questions],
                                 pad_id=self.model.cfg.pad_token_id, bucket=64)
         dev = self.device
-        pix = clip_pixels(images, self.image_size, dev)
-        patches, grid = patchify_batch(pix, self.model.cfg.vision)
         return (torch.as_tensor(np.asarray(padded, np.int64), device=dev),
-                torch.as_tensor(np.asarray(mask, bool), device=dev),
-                patches, grid)
+                torch.as_tensor(np.asarray(mask, bool), device=dev))
+
+    def _prepare(self, images, questions):
+        """Prompts -> left-padded ids (B, T) and mask (B, T) bool on the
+        device; images -> patches (B, N, C*T*P*P) and their grid."""
+        ids, mask = self._prompt_ids(questions)
+        pix = clip_pixels(images, self.image_size, self.device)
+        return (ids, mask, *patchify_batch(pix, self.model.cfg.vision))
 
     def _decode(self, gen: torch.Tensor) -> List[str]:
         texts = []
@@ -214,23 +219,42 @@ class Qwen2VLBackend:
             texts.append(self.tokenizer.decode(out, skip_special_tokens=True).strip())
         return texts
 
-    def _generate(self, images, questions, extract_layer, max_new_tokens):
-        ids, mask, patches, grid = self._prepare(images, questions)
+    def _generate(self, ids, mask, patches, grid, extract_layer, max_new_tokens):
         return self.model.generate_with_attention(
             ids, patches, grid, mask, extract_layer=extract_layer,
             max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
             use_flash=self.use_flash,
         )
 
+    def extract_from_ids(self, input_ids, attention_mask, image,
+                         max_new_tokens: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The tokenizer-free extraction: expanded, left-padded
+        ``input_ids`` (B, T), ``attention_mask`` (B, T) and CLIP-normalized
+        pixels, one (S, S, 3) image shared by the batch (its vision tower
+        runs once) or one per sample (B, S, S, 3), each a numpy array or a
+        tensor; the pixels are patchified on the model's device. Returns
+        (generated ids (B, max_new_tokens), maps (B, n, n); (L, B, n, n)
+        for a sequence of extract layers) on the model's device."""
+        dev = self.device
+        ids = torch.as_tensor(input_ids, device=dev).to(torch.int64)
+        mask = torch.as_tensor(attention_mask, device=dev).to(torch.bool)
+        pix = torch.as_tensor(image, device=dev).to(torch.float32)
+        shared = pix.ndim == 3
+        patches, grid = patchify_batch(pix[None] if shared else pix, self.model.cfg.vision)
+        return self._generate(ids, mask, patches[0] if shared else patches, grid,
+                              self.extract_layer, max_new_tokens)
+
     def extract(self, images, questions: Sequence[str],
                 max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
-        gen, maps = self._generate(images, questions, self.extract_layer,
-                                   max_new_tokens)
+        ids, mask = self._prompt_ids(questions)
+        gen, maps = self.extract_from_ids(
+            ids, mask, clip_pixels(images, self.image_size, self.device), max_new_tokens)
         return maps, self._decode(gen)
 
     def answer_batch(self, images, questions: Sequence[str],
                      max_new_tokens: int = 64) -> List[str]:
         """Answer-only greedy generate (``extract_layer=None``): no layer
         builds a probabilities row and nothing is accumulated."""
-        gen, _ = self._generate(images, questions, None, max_new_tokens)
+        gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
+                                max_new_tokens=max_new_tokens)
         return self._decode(gen)

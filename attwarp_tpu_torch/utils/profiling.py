@@ -1,8 +1,14 @@
-"""Host-side stage timers whose records land in a JSONL stream beside the
-training metrics: ``StageTimer``, a copy of the class in
-``attwarp_tpu/utils/profiling.py``, pinned equal to it by the tests. JAX's
-``device_trace`` (``jax.profiler``) waits for ``torch.profiler``
-(ROADMAP Queue 1 item 8).
+"""Tracing and host-side stage timers (counterpart of
+``attwarp_tpu/utils/profiling.py``).
+
+``device_trace`` captures a ``torch.profiler`` trace of its body, the
+counterpart of JAX's ``jax.profiler`` trace: host ops always, the device's
+kernels where a card is present, written as a Chrome trace
+(``trace.json``, readable in Perfetto or ``chrome://tracing``). Each
+device kernel is an event of category ``kernel`` named by its
+``__global__`` function. ``StageTimer`` writes named wall-clock stages to a
+JSONL stream beside the training metrics; it is a copy of the JAX class,
+pinned equal to it by the tests.
 """
 
 from __future__ import annotations
@@ -12,6 +18,29 @@ import json
 import time
 from pathlib import Path
 from typing import Dict, Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def device_trace(log_dir) -> Iterator[None]:
+    """Trace the body with ``torch.profiler`` (CPU activity, and CUDA
+    activity where a card is present) and write ``log_dir/trace.json`` when
+    it ends, also when it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out / "trace.json"))
 
 
 class StageTimer:

@@ -193,8 +193,34 @@ NVIDIA GPU.
     and ``warp_from_cdf`` ((16,512,512,3)) against the plain path on the
     card, within 1e-4, K1 and its backward one launch each.
 
-The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 13a, 13b,
-7, 8 (Qwen), 14c, 13c, 9, 13d, 15, 16.
+17. The bench and profile tools (``attwarp_tpu_torch/tools/``), each
+    tool's ``run`` on the weights already loaded, repeats and requests cut
+    (never widths), every repeat printed with its min, median and spread
+    beside the card's name and power limit, launch counts as each run's
+    work predicts. 17a (after 14d, on step 6's bf16 LLaVA-1.5-7B,
+    ``+kv8+flash`` unless named): ``bench_extract`` at B=4, its maps
+    bit-equal to ``extract``'s on the same prompts and pixels;
+    ``bench_prefill`` dense (K2 0) and flash (K2 32 a prefill) at B=8
+    T=640; ``bench_decode`` ``+kv8`` at B=4, 16 steps (K3 32 x 16 a
+    chain); ``bench_pipeline`` and ``profile_pipeline`` at B=4 (K1 1, K2 2
+    x 32, K3 as step 6 a run); ``bench_serve`` at 8 slots, 24 requests, 32
+    new tokens (K3 = layers x decode steps, K2 = layers x admission
+    groups); then, in a child process, one ``bench_pipeline`` repeat
+    inside ``utils/profiling.py::device_trace`` under
+    ``build/chip_smoke/trace/``, whose ``trace.json`` must hold device
+    events of K1's, K2's and K3's kernels (the ten device ops that took
+    the most time printed). 17c (then): ``bench_chunked_serve`` ``+kv8``
+    (P=128, 16 slots, 16 requests, K2 0), ``tools.bench.main([])`` (its
+    JSON line printed, never last) and ``profile_warp_terms`` at their
+    defaults. 17b (after 14c, on step 7's Qwen2-VL-7B):
+    ``bench_qwen_prefill`` flash at B=8 T=640, ``bench_qwen_decode``
+    ``+kv8`` at B=4, ``bench_qwen_serve`` ``+kv8+flash`` at 8 slots, 16
+    requests, and ``extract_from_ids`` with one shared image against four
+    per-sample copies of it (tokens equal, maps cos > 0.9999). Step 17's
+    wall is printed.
+
+The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 17a, 17c,
+13a, 13b, 7, 8 (Qwen), 14c, 17b, 13c, 9, 13d, 15, 16.
 
 Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
@@ -3435,6 +3461,261 @@ def phase_warp_grad(dev):
     return paths
 
 
+# ── step 17: the bench and profile tools ────────────────────────────────
+
+# the kernels' __global__ functions a device trace of a +kv8+flash pipeline
+# run must hold (K3's split plane and its merge kernel both count as K3)
+TRACE_KERNELS = {"warp_resample": ("warp_resample_kernel",),
+                 "flash_prefill": ("flash_prefill_kernel",),
+                 "decode_attn_int8": ("decode_attn_mha", "decode_attn_gqa")}
+
+
+def _counted(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every kernel's launch count set to 0
+    just before it; returns (its output, the counts just after)."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn(*args, **kwargs)
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def _expect(tag, launches, want):
+    print(f"[{tag}] launches: " + ", ".join(
+        f"{name} {launches[name]} (expected {want.get(name, 0)})" for name in launches))
+    for name in launches:
+        check(launches[name] == want.get(name, 0), f"{tag}: {name} launch count")
+    return launches
+
+
+def _serve_want(L, r, flash=True):
+    return {"decode_attn_int8": L * r["work"]["decode_steps"],
+            "flash_prefill": L * r["work"]["prefill_groups"] if flash else 0}
+
+
+def phase_tools_llava(backend):
+    """17a: the LLaVA tools' ``run`` on step 6's bf16 LLaVA-1.5-7B weights
+    (``+kv8+flash`` unless named): ``bench_extract`` at B=4, its maps
+    bit-equal to ``extract``'s on the same prompts and pixels;
+    ``bench_prefill`` dense and flash at B=8 T=640; ``bench_decode`` ``+kv8``
+    at B=4, 16 steps; ``bench_pipeline`` and ``profile_pipeline`` at B=4;
+    ``bench_serve`` at 8 slots, 24 requests, 32 new tokens; then one
+    ``bench_pipeline`` repeat inside ``device_trace``, in a child process
+    (a profiler session slows what runs after it in its process), whose
+    trace must hold K1's, K2's and K3's kernels. Each run's launch counts
+    as its work predicts. Repeats and requests are cut, never widths."""
+    import torch
+
+    from attwarp_tpu_torch.tools import (
+        bench_decode,
+        bench_extract,
+        bench_pipeline,
+        bench_prefill,
+        bench_serve,
+        profile_pipeline,
+    )
+
+    L, steps = backend.model.cfg.text.num_hidden_layers, 20
+    old = backend.kv_quant, backend.use_flash
+    backend.kv_quant = backend.use_flash = True
+    paths = {}
+    per_extract = {"flash_prefill": L, "decode_attn_int8": (L - 1) * steps}
+    per_pipeline = {"warp_resample": 1, "flash_prefill": 2 * L,
+                    "decode_attn_int8": (L - 1) * steps + L * steps}
+    try:
+        r, n = _counted(bench_extract.run, backend, B=4, repeats=2, iters=1,
+                        label="bf16+kv8+flash")
+        paths["bench_extract"] = _expect("17a bench_extract", n,
+                                         {k: 3 * v for k, v in per_extract.items()})
+        images = _images()
+        ids, mask, _, _ = backend._prepare(images, QUESTIONS)
+        _, m_tool = bench_extract.one_round(backend, ids, mask, images)
+        m_lib, _ = backend.extract(images, QUESTIONS)
+        same = bool(torch.equal(m_tool, m_lib))
+        print(f"[17a bench_extract] maps of the tool's round and of extract on the same "
+              f"prompts and pixels bit-equal: {same}")
+        check(same, "17a: bench_extract's maps differ from extract's")
+
+        text, tcfg = backend.model.params["llama"], backend.model.cfg.text
+        for mode in ("dense", "flash"):
+            r, n = _counted(bench_prefill.run, text, tcfg, mode == "flash", B=8, T=640,
+                            repeats=2, iters=2, device=backend.device)
+            check(bool(r["logits"].isfinite().all()), f"17a: {mode} prefill logits")
+            paths[f"bench_prefill_{mode}"] = _expect(
+                f"17a bench_prefill {mode}", n, {"flash_prefill": 5 * L if mode == "flash" else 0})
+
+        r, n = _counted(bench_decode.run, text, tcfg, True, B=4, steps=16, repeats=2,
+                        device=backend.device, label="bf16+kv8")
+        check(tuple(r["tokens"].shape) == (4, 16), "17a: decode tokens")
+        paths["bench_decode"] = _expect("17a bench_decode", n, {"decode_attn_int8": 3 * L * 16})
+
+        r, n = _counted(bench_pipeline.run, backend, B=4, repeats=2, iters=1,
+                        label="bf16+kv8+flash")
+        res = r["result"]
+        check(res.attention_maps.shape == (4, 24, 24) and res.warped.shape == (4, 500, 500, 3)
+              and len(res.second_answers) == 4, "17a: pipeline outputs")
+        paths["bench_pipeline"] = _expect("17a bench_pipeline", n,
+                                          {k: 3 * v for k, v in per_pipeline.items()})
+
+        r, n = _counted(profile_pipeline.run, backend, B=4, iters=2, label="bf16+kv8+flash")
+        check(r["warped"].shape == (4, 500, 500, 3), "17a: profile outputs")
+        paths["profile_pipeline"] = _expect("17a profile_pipeline", n,
+                                            {k: 2 * v for k, v in per_pipeline.items()})
+
+        r, n = _counted(bench_serve.run, backend.model, slots=8, n_req=24, max_new=32,
+                        flash=True, repeats=1, label="bf16+kv8+flash")
+        check(len(r["tokens"]) == 24 and all(1 <= len(t) <= 32 for t in r["tokens"]),
+              "17a: serve outputs")
+        paths["bench_serve"] = _expect("17a bench_serve", n, _serve_want(L, r))
+    finally:
+        backend.kv_quant, backend.use_flash = old
+    paths["trace"] = _phase("17a trace", phase_trace)
+    return paths
+
+
+def phase_trace():
+    """17a's traced run, in a child process: see ``trace_child``."""
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.trace_child()"],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=Path(__file__).resolve().parent)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[17a trace] {line}")
+    check(proc.returncode == 0 and lines, f"17a trace failed: {proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def trace_child():
+    """Step 6's LLaVA-1.5-7B weights (the same seed) ``+kv8+flash``: one
+    ``bench_pipeline`` warm-up run, then one repeat at B=4 inside
+    ``device_trace`` under ``build/chip_smoke/trace/``. Its ``trace.json``
+    must hold device events of K1's, K2's and K3's ``__global__``
+    functions; prints the ten device ops that took the most time and, on
+    the last line, the launch counts of both runs."""
+    import torch
+
+    from attwarp_tpu_torch.extract.tokenizer import DryRunTokenizer
+    from attwarp_tpu_torch.tools.bench_utils import make_llava_7b_backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    backend, label = make_llava_7b_backend("bf16+kv8+flash", tokenizer=DryRunTokenizer(),
+                                           device="cuda:0")
+    print(json.dumps(_traced_pipeline(backend, label)))
+
+
+def _traced_pipeline(backend, label):
+    import collections
+
+    from attwarp_tpu_torch.tools import bench_pipeline
+
+    d = _scratch("trace")
+    t0 = time.perf_counter()
+    _, n = _counted(bench_pipeline.run, backend, B=4, repeats=1, iters=1, trace_dir=d,
+                    label=label)
+    print(f"traced run (warm-up untraced, one repeat traced, export included) "
+          f"{time.perf_counter() - t0:.2f} s")
+    with open(d / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    dev_ms = collections.Counter()
+    calls = collections.Counter()
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            dev_ms[e["name"]] += e["dur"] / 1e3
+            calls[e["name"]] += 1
+    total = sum(dev_ms.values())
+    print(f"trace.json {(d / 'trace.json').stat().st_size / 2**20:.1f} MiB, "
+          f"{len(events)} events; device ops {sum(calls.values())}, {total:.2f} ms")
+    for name, ms in dev_ms.most_common(10):
+        print(f"  {ms:9.3f} ms  {calls[name]:6d} calls  {name[:110]}")
+    found = {k: sum(calls[nm] for nm in calls if any(g in nm for g in globs))
+             for k, globs in TRACE_KERNELS.items()}
+    print(f"kernel events in the trace: {found}")
+    for k, v in found.items():
+        check(v > 0, f"trace: no device event of {k}")
+    L, steps = backend.model.cfg.text.num_hidden_layers, 20
+    want = {"warp_resample": 2, "flash_prefill": 4 * L,
+            "decode_attn_int8": 2 * ((L - 1) * steps + L * steps)}
+    return _expect("trace", n, want)
+
+
+def phase_tools_chunked_warp(backend):
+    """17c: ``bench_chunked_serve`` on step 6's LLaVA-1.5-7B ``+kv8`` (P=128,
+    16 slots, 16 requests; the chunked engine runs no K2), then
+    ``tools.bench.main([])`` (its JSON line printed here, never last) and
+    ``profile_warp_terms`` at their defaults (336 px, b128, 200 warps a
+    chain)."""
+    from attwarp_tpu_torch.tools import bench, bench_chunked_serve, profile_warp_terms
+
+    L = backend.model.cfg.text.num_hidden_layers
+    paths = {}
+    r, n = _counted(bench_chunked_serve.run, backend.model, slots=16, n_req=16, P=128,
+                    repeats=1, label="bf16+kv8")
+    check(len(r["tokens"]) == 16 and all(1 <= len(t) <= 128 for t in r["tokens"]),
+          "17c: chunked outputs")
+    paths["bench_chunked_serve"] = _expect("17c bench_chunked_serve", n,
+                                           _serve_want(L, r, flash=False))
+    rc, n = _counted(bench.main, [])
+    check(rc == 0, "17c: bench.main")
+    paths["bench_warp"] = _expect("17c bench", n, {"warp_resample": 4 * bench.ITERS})
+    r, n = _counted(profile_warp_terms.run, "cuda")
+    print(f"[17c profile_warp_terms] us per image: full {r['full_us_per_image']:.3f}, grid "
+          f"{r['grid_us_per_image']:.3f}, resample {r['resample_us_per_image']:.3f} "
+          f"({r['full_warps_per_sec']:.1f} warps/s) | {r['card']}")
+    paths["profile_warp_terms"] = _expect("17c profile_warp_terms", n,
+                                          {"warp_resample": 2 * 4 * 200})
+    return paths
+
+
+def phase_tools_qwen(backend):
+    """17b: the Qwen tools' ``run`` on step 7's bf16 Qwen2-VL-7B weights:
+    ``bench_qwen_prefill`` flash at B=8 T=640, ``bench_qwen_decode`` ``+kv8``
+    at B=4, ``bench_qwen_serve`` ``+kv8+flash`` at 8 slots, 16 requests (128
+    new tokens); then ``extract_from_ids`` with one shared image and with
+    four per-sample copies of it: tokens equal, maps cos > 0.9999 (14c's
+    bar: the vision tower runs at another batch)."""
+    import torch
+
+    from attwarp_tpu_torch.extract.resize import clip_pixels
+    from attwarp_tpu_torch.tools import bench_qwen_decode, bench_qwen_prefill, bench_qwen_serve
+
+    L = backend.model.cfg.text.num_hidden_layers
+    text, tcfg = backend.model.params["text"], backend.model.cfg.text
+    paths = {}
+    r, n = _counted(bench_qwen_prefill.run, text, tcfg, True, B=8, T=640, repeats=2, iters=2,
+                    device=backend.device)
+    check(bool(r["logits"].isfinite().all()), "17b: prefill logits")
+    paths["bench_qwen_prefill"] = _expect("17b bench_qwen_prefill", n, {"flash_prefill": 5 * L})
+    r, n = _counted(bench_qwen_decode.run, text, tcfg, True, B=4, steps=16, repeats=2,
+                    device=backend.device, label="bf16+kv8")
+    paths["bench_qwen_decode"] = _expect("17b bench_qwen_decode", n,
+                                         {"decode_attn_int8": 3 * L * 16})
+    r, n = _counted(bench_qwen_serve.run, backend.model, slots=8, n_req=16, flash=True,
+                    repeats=1, label="bf16+kv8+flash")
+    check(len(r["tokens"]) == 16, "17b: serve outputs")
+    paths["bench_qwen_serve"] = _expect("17b bench_qwen_serve", n, _serve_want(L, r))
+
+    images = _images()
+    ids, mask = backend._prompt_ids(QUESTIONS)
+    one = clip_pixels([images[0]], backend.image_size, backend.device)[0]
+    (g1, m1), n1 = _counted(backend.extract_from_ids, ids, mask, one)
+    (g4, m4), n4 = _counted(backend.extract_from_ids, ids, mask, one[None].expand(4, -1, -1, -1))
+    cos = min(_cos(a, b) for a, b in zip(m1.reshape(4, -1), m4.reshape(4, -1)))
+    same = bool(torch.equal(g1, g4))
+    print(f"[17b qwen extract_from_ids] one shared image vs 4 copies: maps {tuple(m1.shape)} "
+          f"min cos {cos:.6f} (bar > 0.9999), greedy tokens equal {same}")
+    check(tuple(m1.shape) == (4, 24, 24) and cos > 0.9999, "17b: shared-image maps")
+    check(same, "17b: shared-image tokens")
+    want = {"flash_prefill": L, "decode_attn_int8": (L - 1) * 20}
+    for n_ in (n1, n4):
+        _expect("17b qwen extract_from_ids", n_, want)
+    paths["qwen_extract_from_ids"] = {k: n1[k] + n4[k] for k in n1}
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3477,6 +3758,10 @@ def main(argv=None) -> int:
                                                 backend, step10)
     paths["llava_sweep"] = _phase("14b llava sweep", phase_llava_sweep, backend, layers_root)
     paths["mini_dataset"] = _phase("14d mini", phase_mini, dev)
+    t17 = time.perf_counter()
+    paths.update(_phase("17a llava tools", phase_tools_llava, backend))
+    paths.update(_phase("17c chunked and warp tools", phase_tools_chunked_warp, backend))
+    wall17 = time.perf_counter() - t17
     gc.collect()
     torch.cuda.empty_cache()
     int8 = _phase("13a int8 product", phase_int8_matmul, dev)
@@ -3487,6 +3772,10 @@ def main(argv=None) -> int:
     paths["qwen"], backend, base7 = _phase("7 qwen", phase_qwen, dev)
     paths["qwen_serve"] = _phase("8 qwen serve", phase_qwen_serve, backend)
     paths["qwen_layers"] = _phase("14c qwen layers", phase_qwen_layers, backend)
+    t17 = time.perf_counter()
+    paths.update(_phase("17b qwen tools", phase_tools_qwen, backend))
+    wall17 += time.perf_counter() - t17
+    print(f"[17] step 17 wall {wall17:.2f} s (17a, 17c and 17b)")
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(_phase("13c qwen int8", phase_qwen_int8, backend, base7))
