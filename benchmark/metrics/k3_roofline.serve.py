@@ -1,0 +1,13 @@
+"""Kernel K3's share of its roofline in the traced slice, in %: the summed
+least time of its calls (``counts/roofline.py`` at the shapes recorded at
+the kernel's Python entry) over the summed device time of its kernels in
+the trace. Nothing where the slice ran no K3."""
+
+LAYER = "kernels"
+MOVES = "served_tok_per_s"
+
+
+def read(r):
+    t = r.trace["kernel_s"].get("k3") if r.trace else None
+    least = r.kernel_least_s.get("k3")
+    return 100.0 * least / t if t and least else None

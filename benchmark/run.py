@@ -1,0 +1,64 @@
+"""Run one cell of the benchmark of the PyTorch + CUDA port once.
+
+    python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+From the root of a checkout, on a machine with the card(s) the cell asks
+for; it exits non-zero and prints no result where there are fewer. The
+last line of standard output is the run's JSON result (``correct``,
+``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
+``breakdown``, and last ``compared``: each number the check compared with
+its limit); the compared numbers are also the last lines of standard error.
+With ``--trace 0`` the metrics are the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics.
+"""
+
+import time
+
+T_PROCESS = time.perf_counter()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+CACHE = ROOT / "benchmark" / ".cache"
+# every build and kernel cache at a fixed path inside the checkout
+os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
+os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
+os.environ["CUDA_CACHE_PATH"] = str(CACHE / "nv")
+sys.path.insert(0, str(ROOT))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser("benchmark/run.py")
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = p.parse_args(argv)
+
+    import torch
+
+    from benchmark.harness import compared_lines, find_cell, load_json, result_line, run_cell
+
+    bench = load_json(ROOT / "BENCHMARK.json")
+    cell = find_cell(bench, args.workload)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
+        print(f"benchmark: {args.workload} needs {cell['chips']} CUDA device(s); "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} here",
+              file=sys.stderr)
+        return 3
+    torch.set_num_threads(2)
+    out = run_cell(bench, args.workload, args.seed, args.seconds, bool(args.trace),
+                   torch.device("cuda", 0), T_PROCESS)
+    print(json.dumps({k: out[k] for k in ("info", "trace") if k in out}), file=sys.stderr)
+    for line in compared_lines(out):
+        print(line, file=sys.stderr)
+    print(result_line(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
