@@ -6,7 +6,8 @@ Loads a backend spec (``cli/process_dataset.py::make_backend``, e.g.
 ``{"image_path"?, "question"}`` or ``{"image_path"?, "input_ids": [...]}``
 requests, serves them through ``ServeEngine`` (``ChunkedPrefillEngine``
 with ``--chunked-prefill P``) and writes one ``{"question", "answer",
-"tokens"}`` line per request.
+"tokens"}`` line per request. ``--spans PATH`` records the run's spans and
+counters (``utils/profiling.py``) and writes them to PATH as JSONL.
 
     python -m attwarp_tpu_torch.cli.serve \\
         --backend llava-ckpt:/ckpt+kv8+flash \\
@@ -22,6 +23,7 @@ requests.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -59,6 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ticks (ChunkedPrefillEngine) instead of dedicated "
                         "prefills; 0 = monolithic admission")
     p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="write the run's spans and counters here as JSONL "
+                        "(utils/profiling.py::tracing)")
     return p
 
 
@@ -90,6 +95,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     from attwarp_tpu_torch.cli.process_dataset import make_backend
     from attwarp_tpu_torch.data.imageio import read_rgb
+    from attwarp_tpu_torch.utils import profiling
 
     backend = make_backend(args.backend, layer_index=0, device=args.device)
     with open(args.jsonl) as f:
@@ -108,9 +114,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "temperature": float(line.get("temperature", args.temperature))})
 
     t0 = time.perf_counter()
-    _, outputs = serve(backend, requests, slots=args.slots, max_seq=args.max_seq,
-                       steps_per_tick=args.steps_per_tick, top_k=args.top_k,
-                       seed=args.seed, chunked_prefill=args.chunked_prefill)
+    with (profiling.tracing(args.spans) if args.spans else contextlib.nullcontext()):
+        _, outputs = serve(backend, requests, slots=args.slots, max_seq=args.max_seq,
+                           steps_per_tick=args.steps_per_tick, top_k=args.top_k,
+                           seed=args.seed, chunked_prefill=args.chunked_prefill)
     dt = time.perf_counter() - t0
 
     eos = backend.model.cfg.eos_token_id

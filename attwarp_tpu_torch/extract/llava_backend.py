@@ -45,6 +45,7 @@ from attwarp_tpu_torch.models.llava import (
     port_hf_llava_weights,
 )
 from attwarp_tpu_torch.numerics.quant import quantize_decoder_params, quantize_lm_head
+from attwarp_tpu_torch.utils import profiling
 from attwarp_tpu_torch.utils.device import require_device
 
 
@@ -180,12 +181,16 @@ class LlavaBackend:
         """Prompts -> expanded, left-padded ids (B, T), mask (B, T) bool,
         image-span starts (B,) and CLIP-normalized pixels, on the model's
         device."""
-        padded, mask = left_pad([self.build_ids(q) for q in questions],
-                                pad_id=self.model.cfg.pad_token_id, bucket=64)
-        dev = self.device
-        ids = torch.as_tensor(np.asarray(padded, np.int64), device=dev)
-        return (ids, torch.as_tensor(np.asarray(mask, bool), device=dev),
-                self._img_start(ids), clip_pixels(images, self.image_size, dev))
+        with profiling.span("backend.prepare"):
+            padded, mask = left_pad([self.build_ids(q) for q in questions],
+                                    pad_id=self.model.cfg.pad_token_id, bucket=64)
+            mask = np.asarray(mask, bool)
+            if profiling.recording():
+                profiling.count("prefill_tokens", int(mask.sum()))
+            dev = self.device
+            ids = torch.as_tensor(np.asarray(padded, np.int64), device=dev)
+            return (ids, torch.as_tensor(mask, device=dev),
+                    self._img_start(ids), clip_pixels(images, self.image_size, dev))
 
     def _generate(self, ids, mask, img_start, pixels, extract_layer, max_new_tokens):
         return self.model.generate_with_attention(
@@ -194,6 +199,7 @@ class LlavaBackend:
             use_flash=self.use_flash,
         )
 
+    @profiling.span("backend.detokenize")   # the generated ids' fetch and decode
     def _decode(self, gen: torch.Tensor) -> List[str]:
         texts = []
         for row in gen.cpu().tolist():
@@ -221,15 +227,17 @@ class LlavaBackend:
 
     def extract(self, images, questions: Sequence[str],
                 max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
-        ids, mask, _, pixels = self._prepare(images, questions)
-        gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
-        return maps, self._decode(gen)
+        with profiling.span("backend.extract"):
+            ids, mask, _, pixels = self._prepare(images, questions)
+            gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
+            return maps, self._decode(gen)
 
     def answer_batch(self, images, questions: Sequence[str],
                      max_new_tokens: int = 64) -> List[str]:
         """Answer-only greedy generate (``extract_layer=None``): no layer
         builds a probabilities row and nothing is accumulated."""
-        gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
-                                max_new_tokens=max_new_tokens)
-        return self._decode(gen)
+        with profiling.span("backend.answer"):
+            gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
+                                    max_new_tokens=max_new_tokens)
+            return self._decode(gen)
 

@@ -48,6 +48,7 @@ from attwarp_tpu_torch.models.qwen2vl import (
     port_hf_qwen2vl_weights,
 )
 from attwarp_tpu_torch.numerics.quant import quantize_decoder_params, quantize_lm_head
+from attwarp_tpu_torch.utils import profiling
 from attwarp_tpu_torch.utils.device import require_device
 
 
@@ -197,17 +198,22 @@ class Qwen2VLBackend:
         device."""
         padded, mask = left_pad([self.build_ids(q) for q in questions],
                                 pad_id=self.model.cfg.pad_token_id, bucket=64)
+        mask = np.asarray(mask, bool)
+        if profiling.recording():
+            profiling.count("prefill_tokens", int(mask.sum()))
         dev = self.device
         return (torch.as_tensor(np.asarray(padded, np.int64), device=dev),
-                torch.as_tensor(np.asarray(mask, bool), device=dev))
+                torch.as_tensor(mask, device=dev))
 
     def _prepare(self, images, questions):
         """Prompts -> left-padded ids (B, T) and mask (B, T) bool on the
         device; images -> patches (B, N, C*T*P*P) and their grid."""
-        ids, mask = self._prompt_ids(questions)
-        pix = clip_pixels(images, self.image_size, self.device)
-        return (ids, mask, *patchify_batch(pix, self.model.cfg.vision))
+        with profiling.span("backend.prepare"):
+            ids, mask = self._prompt_ids(questions)
+            pix = clip_pixels(images, self.image_size, self.device)
+            return (ids, mask, *patchify_batch(pix, self.model.cfg.vision))
 
+    @profiling.span("backend.detokenize")   # the generated ids' fetch and decode
     def _decode(self, gen: torch.Tensor) -> List[str]:
         texts = []
         for row in gen.cpu().tolist():
@@ -246,15 +252,18 @@ class Qwen2VLBackend:
 
     def extract(self, images, questions: Sequence[str],
                 max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
-        ids, mask = self._prompt_ids(questions)
-        gen, maps = self.extract_from_ids(
-            ids, mask, clip_pixels(images, self.image_size, self.device), max_new_tokens)
-        return maps, self._decode(gen)
+        with profiling.span("backend.extract"):
+            with profiling.span("backend.prepare"):
+                ids, mask = self._prompt_ids(questions)
+                pixels = clip_pixels(images, self.image_size, self.device)
+            gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
+            return maps, self._decode(gen)
 
     def answer_batch(self, images, questions: Sequence[str],
                      max_new_tokens: int = 64) -> List[str]:
         """Answer-only greedy generate (``extract_layer=None``): no layer
         builds a probabilities row and nothing is accumulated."""
-        gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
-                                max_new_tokens=max_new_tokens)
-        return self._decode(gen)
+        with profiling.span("backend.answer"):
+            gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
+                                    max_new_tokens=max_new_tokens)
+            return self._decode(gen)

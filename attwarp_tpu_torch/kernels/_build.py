@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from attwarp_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -113,6 +115,7 @@ def build(verbose: bool = False) -> Path:
         if verbose:
             print(report, flush=True)
         os.replace(tmp, out)   # atomic: a reader never sees a partial file
+        profiling.count("kernels.library_builds")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from attwarp_tpu_torch.kernels._build import check_launch, library, require_cuda
+from attwarp_tpu_torch.utils import profiling
 
 HEAD_DIM = 128   # the only head_dim the CUDA kernel takes (as on the TPU)
 MAX_LEN = 256    # positions per split (the kernel holds the split's rows in shared memory)
@@ -122,6 +123,7 @@ def decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer: int,
 
 def decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer: int,
                      sm_scale: float) -> torch.Tensor:
+    profiling.count("k3.calls")
     if q.device.type == "cpu":
         return decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm_scale)
     if k_q.ndim != 5 or k_q.shape != v_q.shape:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from attwarp_tpu_torch.kernels._build import check_launch, library, require_cuda
+from attwarp_tpu_torch.utils import profiling
 
 HEAD_DIM = 128   # the only head_dim the CUDA kernel takes (as on the TPU)
 
@@ -48,6 +49,7 @@ def flash_prefill_plain(q, k, v, attention_mask, sm_scale: float) -> torch.Tenso
 
 
 def flash_prefill(q, k, v, attention_mask, sm_scale: float) -> torch.Tensor:
+    profiling.count("k2.calls")
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, attention_mask, sm_scale)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:

@@ -34,6 +34,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from attwarp_tpu_torch.kernels._build import check_launch, library, require_cuda
+from attwarp_tpu_torch.utils import profiling
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
 
 THREADS = 128                # one block; also the entry scan's width
@@ -121,6 +122,7 @@ def k1_plan(B: int, H: int, W: int, C: int, H_out: int, W_out: int,
 
 def warp_resample(images: torch.Tensor, map_x: torch.Tensor,
                   map_y: torch.Tensor) -> torch.Tensor:
+    profiling.count("k1.calls")
     if images.device.type == "cpu":
         return remap_bilinear_separable(images, map_x, map_y)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (images, map_x, map_y)):

@@ -51,6 +51,7 @@ from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
 from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv, row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, all_reduce, split_group
+from attwarp_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -335,37 +336,40 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
     built."""
     want = _check_layer(extract_layer, cfg)
     B, T, _ = inputs_embeds.shape
-    dev = inputs_embeds.device
-    flash = use_flash and flash_prefill_supported(T)
-    if not flash:
-        causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
-        mask = causal & attention_mask[:, None, :]
-    kvh = local_kv_heads(params, cfg)
-    if kv_quant:
-        cache = init_quant_kv_cache(cfg, B, max_seq, dev, kvh)
-    else:
-        cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev, kvh)
-
-    x = inputs_embeds
-    rows = {}
-    for i, lp in enumerate(params["layers"]):
-        q, k, v = _qkv(lp, cfg, x, cos, sin)
-        if flash:
-            attn = _flash_attn(q, k, v, attention_mask, cfg)
-            if i in want:
-                rows[i] = _last_row_probs(q[:, -1], k, attention_mask, cfg)
-        else:
-            attn, r = _attn(q, k, v, mask, cfg, want_probs=i in want)
-            if r is not None:
-                rows[i] = r
+    # every position of the batch, padding included (the shapes)
+    profiling.count("prefill_positions", B * T)
+    with profiling.span("prefill", B=B, T=T):
+        dev = inputs_embeds.device
+        flash = use_flash and flash_prefill_supported(T)
+        if not flash:
+            causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
+            mask = causal & attention_mask[:, None, :]
+        kvh = local_kv_heads(params, cfg)
         if kv_quant:
-            cache.k_q[i, :, :T], cache.k_s[i, :, :T] = quantize_kv(k)
-            cache.v_q[i, :, :T], cache.v_s[i, :, :T] = quantize_kv(v)
+            cache = init_quant_kv_cache(cfg, B, max_seq, dev, kvh)
         else:
-            cache.k[i, :, :T] = k
-            cache.v[i, :, :T] = v
-        x = layer_residuals(lp, cfg, x, attn)
-    return final_logits(params, cfg, x[:, -1]), cache, _stack_rows(rows, extract_layer, params)
+            cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev, kvh)
+
+        x = inputs_embeds
+        rows = {}
+        for i, lp in enumerate(params["layers"]):
+            q, k, v = _qkv(lp, cfg, x, cos, sin)
+            if flash:
+                attn = _flash_attn(q, k, v, attention_mask, cfg)
+                if i in want:
+                    rows[i] = _last_row_probs(q[:, -1], k, attention_mask, cfg)
+            else:
+                attn, r = _attn(q, k, v, mask, cfg, want_probs=i in want)
+                if r is not None:
+                    rows[i] = r
+            if kv_quant:
+                cache.k_q[i, :, :T], cache.k_s[i, :, :T] = quantize_kv(k)
+                cache.v_q[i, :, :T], cache.v_s[i, :, :T] = quantize_kv(v)
+            else:
+                cache.k[i, :, :T] = k
+                cache.v[i, :, :T] = v
+            x = layer_residuals(lp, cfg, x, attn)
+        return final_logits(params, cfg, x[:, -1]), cache, _stack_rows(rows, extract_layer, params)
 
 
 def llama_prefill(

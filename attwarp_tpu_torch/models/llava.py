@@ -35,6 +35,7 @@ from attwarp_tpu_torch.models.llama import (
 )
 from attwarp_tpu_torch.numerics.quant import is_quantized, row_linear
 from attwarp_tpu_torch.parallel.comm import split_group
+from attwarp_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -56,6 +57,7 @@ def _gelu(x: torch.Tensor, name: str) -> torch.Tensor:
     return F.gelu(x, approximate="none" if name == "gelu" else "tanh")
 
 
+@profiling.span("vision")
 def encode_images(params, cfg: LlavaConfig, pixel_values: torch.Tensor) -> torch.Tensor:
     """CLIP-normalized (B, S, S, 3) -> projected (B, n_img, D_text)."""
     feats = clip_vision_features(params["vision"], cfg.vision, pixel_values,
@@ -159,22 +161,24 @@ class LlavaModel:
         full_mask = F.pad(attention_mask, (0, max_seq - T))
         toks = [tok.new_empty((B, 0))]
         for step in range(max_new_tokens):
-            cur_len = T + step
-            full_mask[:, cur_len] = True
-            emb = embed(params["llama"], tok)[:, None, :]
-            logits, kv, row = llama_decode_step(
-                params["llama"], tcfg, emb, kv, cur_len, lengths + step,
-                full_mask, extract_layer=extract_layer,
-            )
-            # every step's row counts, finished rows included (HF generate
-            # keeps forwarding them; llava.py:384-411)
-            carry = acc(carry, row)
-            toks.append(tok[:, None])
-            nxt = torch.argmax(logits, dim=-1)
-            # finished rows continue with PAD, as HF generate does
-            nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-            finished = finished | (nxt == cfg.eos_token_id)
-            tok = nxt
+            profiling.count("decode_steps")
+            with profiling.span("decode_step"):
+                cur_len = T + step
+                full_mask[:, cur_len] = True
+                emb = embed(params["llama"], tok)[:, None, :]
+                logits, kv, row = llama_decode_step(
+                    params["llama"], tcfg, emb, kv, cur_len, lengths + step,
+                    full_mask, extract_layer=extract_layer,
+                )
+                # every step's row counts, finished rows included (HF generate
+                # keeps forwarding them; llava.py:384-411)
+                carry = acc(carry, row)
+                toks.append(tok[:, None])
+                nxt = torch.argmax(logits, dim=-1)
+                # finished rows continue with PAD, as HF generate does
+                nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
+                finished = finished | (nxt == cfg.eos_token_id)
+                tok = nxt
         maps = None if carry is None else finalize(carry, side)
         return torch.cat(toks, dim=1), maps
 

@@ -47,6 +47,7 @@ from attwarp_tpu_torch.models.llama import (
 )
 from attwarp_tpu_torch.numerics.quant import row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, split_group
+from attwarp_tpu_torch.utils import profiling
 
 
 # ── configs ─────────────────────────────────────────────────────────────
@@ -189,6 +190,7 @@ def _rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Te
     return (x32 * cos + _rotate_half(x32) * sin).to(x.dtype)
 
 
+@profiling.span("vision")
 def qwen2vl_vision_features(
     params: Dict[str, Any],
     cfg: Qwen2VLVisionConfig,
@@ -424,9 +426,10 @@ class Qwen2VLModel:
         M = cfg.vision.spatial_merge_size
         side_h, side_w = grid_thw[1] // M, grid_thw[2] // M
         n_img = side_h * side_w
-        ids_np = input_ids.cpu().numpy()
-        pos, deltas = get_mrope_positions(
-            ids_np, attention_mask.cpu().numpy(), grid_thw, cfg.image_token_id, M)
+        with profiling.span("mrope_positions"):   # the prompt's fetch to the host
+            ids_np = input_ids.cpu().numpy()
+            pos, deltas = get_mrope_positions(
+                ids_np, attention_mask.cpu().numpy(), grid_thw, cfg.image_token_id, M)
         img_start = torch.as_tensor(
             np.argmax(ids_np == cfg.image_token_id, axis=1), device=dev)
         deltas = torch.as_tensor(deltas, device=dev)
@@ -451,23 +454,25 @@ class Qwen2VLModel:
         full_mask = F.pad(attention_mask, (0, max_seq - T))
         toks = [tok.new_empty((B, 0))]
         for step in range(max_new_tokens):
-            cur_len = T + step
-            full_mask[:, cur_len] = True
-            # all three M-RoPE streams share the text position after the prompt
-            p = T + deltas + step                                  # (B,)
-            cos1, sin1 = mrope_cos_sin(p[None, :, None].expand(3, B, 1), tcfg)
-            emb = embed(params["text"], tok)[:, None, :]
-            logits, kv, row = qwen2vl_decode_step(
-                params["text"], tcfg, emb, kv, cur_len, cos1, sin1, full_mask,
-                extract_layer=extract_layer,
-            )
-            carry = acc(carry, row)
-            toks.append(tok[:, None])
-            nxt = torch.argmax(logits, dim=-1)
-            # finished rows continue with PAD, as HF generate does
-            nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-            finished = finished | (nxt == cfg.eos_token_id)
-            tok = nxt
+            profiling.count("decode_steps")
+            with profiling.span("decode_step"):
+                cur_len = T + step
+                full_mask[:, cur_len] = True
+                # all three M-RoPE streams share the text position after the prompt
+                p = T + deltas + step                                  # (B,)
+                cos1, sin1 = mrope_cos_sin(p[None, :, None].expand(3, B, 1), tcfg)
+                emb = embed(params["text"], tok)[:, None, :]
+                logits, kv, row = qwen2vl_decode_step(
+                    params["text"], tcfg, emb, kv, cur_len, cos1, sin1, full_mask,
+                    extract_layer=extract_layer,
+                )
+                carry = acc(carry, row)
+                toks.append(tok[:, None])
+                nxt = torch.argmax(logits, dim=-1)
+                # finished rows continue with PAD, as HF generate does
+                nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
+                finished = finished | (nxt == cfg.eos_token_id)
+                tok = nxt
         maps = None if carry is None else finalize(carry, side_h, side_w)
         return torch.cat(toks, dim=1), maps
 

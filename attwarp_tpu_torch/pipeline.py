@@ -21,6 +21,7 @@ shape, a [0, 1] scale and a bucketed size. Maps are (B, n, n) for any n
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -32,9 +33,13 @@ from attwarp_tpu_torch.extract.resize import (
     resize_scale_device,
     to01_scale,
 )
+from attwarp_tpu_torch.utils import profiling
 from attwarp_tpu_torch.warp.blend import mota_mask
 from attwarp_tpu_torch.warp.transforms import Transform, WarpParams
 from attwarp_tpu_torch.warp.warp import warp_batch_by_attention
+
+# the id every span of one ``run`` carries (``batch``)
+_batch_ids = itertools.count()
 
 
 @dataclass
@@ -85,54 +90,62 @@ class AttWarpPipeline:
             questions: Sequence[str]) -> AttWarpResult:
         if len(images) != len(questions):
             raise ValueError(f"{len(images)} images but {len(questions)} questions")
-        B = len(images)
-        arrs = [np.asarray(im) for im in images]
-        dev = self.backend.device
-        size = self.backend.image_size
+        with profiling.span("pipeline.run", batch=next(_batch_ids)):
+            B = len(images)
+            arrs = [np.asarray(im) for im in images]
+            dev = self.backend.device
+            size = self.backend.image_size
 
-        # pass 1: extraction on device-resized pixels
-        maps, first_answers = self.backend.extract(
-            resize_images_batch(arrs, size, dev), list(questions),
-            max_new_tokens=self.max_new_tokens,
-        )
-        if maps.ndim == 4:  # a sequence of extract layers: the first is primary
-            maps = maps[0]
+            # pass 1: extraction on device-resized pixels
+            with profiling.span("pipeline.resize"):
+                pix1 = resize_images_batch(arrs, size, dev)
+            maps, first_answers = self.backend.extract(
+                pix1, list(questions), max_new_tokens=self.max_new_tokens)
+            if maps.ndim == 4:  # a sequence of extract layers: the first is primary
+                maps = maps[0]
 
-        # mask + warp per (raw shape, scale, bucketed shape) group
-        S = self.warp_size
-        groups: dict = {}
-        for b, a in enumerate(arrs):
-            tgt = self._bucket_target(a.shape[:2])
-            groups.setdefault((a.shape, to01_scale(a), tgt), []).append(b)
-        masks: List[Optional[np.ndarray]] = [None] * B
-        warped = torch.empty((B, S, S, 3), dtype=torch.float32, device=dev)
-        for (_shape, scale01, tgt), idxs in groups.items():
-            batch = torch.as_tensor(np.stack([arrs[b] for b in idxs])).to(dev)
-            img255 = resize_scale_device(batch, 255.0 * scale01, tgt)
-            sel = torch.as_tensor(idxs, device=dev)
-            g_masks = mota_mask(
-                maps[sel], tgt, enhance_coe=self.enhance_coe,
-                kernel_size=self.kernel_size,
-                quantize_like_reference=self.quantize_like_reference,
+            # mask + warp per (raw shape, scale, bucketed shape) group
+            S = self.warp_size
+            groups: dict = {}
+            for b, a in enumerate(arrs):
+                tgt = self._bucket_target(a.shape[:2])
+                groups.setdefault((a.shape, to01_scale(a), tgt), []).append(b)
+            masks: List[Optional[np.ndarray]] = [None] * B
+            warped = torch.empty((B, S, S, 3), dtype=torch.float32, device=dev)
+            for (shape, scale01, tgt), idxs in groups.items():
+                with profiling.span("pipeline.group", shape=list(shape), n=len(idxs)):
+                    batch = torch.as_tensor(np.stack([arrs[b] for b in idxs])).to(dev)
+                    img255 = resize_scale_device(batch, 255.0 * scale01, tgt)
+                    sel = torch.as_tensor(idxs, device=dev)
+                    with profiling.span("pipeline.mask"):
+                        g_masks = mota_mask(
+                            maps[sel], tgt, enhance_coe=self.enhance_coe,
+                            kernel_size=self.kernel_size,
+                            quantize_like_reference=self.quantize_like_reference,
+                        )
+                    with profiling.span("pipeline.warp"):
+                        warped[sel] = warp_batch_by_attention(
+                            img255, g_masks.to(torch.float32), S, S, self.params)
+                    with profiling.span("pipeline.to_host"):
+                        for j, m in zip(idxs, g_masks.cpu().numpy()):
+                            masks[j] = m
+
+            second_answers = None
+            if self.second_pass:
+                with profiling.span("pipeline.resize"):
+                    pix2 = resize_scale_device(warped, 1.0 / 255.0, (size, size))
+                second_answers = self.backend.answer_batch(
+                    pix2, list(questions), max_new_tokens=self.max_new_tokens)
+
+            with profiling.span("pipeline.to_host"):
+                warped_np, maps_np = warped.cpu().numpy(), maps.cpu().numpy()
+            return AttWarpResult(
+                warped=warped_np,
+                attention_maps=maps_np,
+                mota_masks=masks,
+                first_answers=list(first_answers),
+                second_answers=second_answers,
             )
-            warped[sel] = warp_batch_by_attention(
-                img255, g_masks.to(torch.float32), S, S, self.params)
-            for j, m in zip(idxs, g_masks.cpu().numpy()):
-                masks[j] = m
-
-        second_answers = None
-        if self.second_pass:
-            pix2 = resize_scale_device(warped, 1.0 / 255.0, (size, size))
-            second_answers = self.backend.answer_batch(
-                pix2, list(questions), max_new_tokens=self.max_new_tokens)
-
-        return AttWarpResult(
-            warped=warped.cpu().numpy(),
-            attention_maps=maps.cpu().numpy(),
-            mota_masks=masks,
-            first_answers=list(first_answers),
-            second_answers=second_answers,
-        )
 
     def _bucket_target(self, hw) -> tuple:
         """Bucketed (H, W) for a raw image size."""

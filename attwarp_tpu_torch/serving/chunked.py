@@ -57,6 +57,7 @@ from attwarp_tpu_torch.models.llama import (
 )
 from attwarp_tpu_torch.numerics.quant import quantize_kv
 from attwarp_tpu_torch.serving.engine import Request, ServeEngine, sample_tokens
+from attwarp_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -115,24 +116,29 @@ class ChunkedPrefillEngine(ServeEngine):
         (vision tower included); the ticks carry their chunks. A failed
         embedding puts the request back at the head of the queue. Logs one
         admission wave per call that admits."""
-        t0, n = time.perf_counter(), 0
+        t0 = time.perf_counter()
         free = [b for b, s in enumerate(self._slots) if not (s.active or s.pending)]
-        for b in free[:len(self.queue)]:
-            req = self.queue.popleft()
-            Tb = -(-len(req.input_ids) // self.bucket) * self.bucket
-            try:
-                embeds, _, cos, sin = self._embed_group(
-                    Tb, req.pixel_values is not None, [(b, req)])
-            except Exception:
-                self.queue.appendleft(req)
-                raise
-            self._slots[b].pending = True
-            self._slots[b].rid = req.rid
-            self._admitting.append(_Admission(b, req, Tb, Tb - len(req.input_ids),
-                                              embeds[0], cos[0], sin[0]))
-            n += 1
-        if n:
-            self.admit_log.append((t0, time.perf_counter(), n))
+        if not (free and self.queue):
+            return
+        with profiling.span("serve.admit"):
+            n = 0
+            for b in free[:len(self.queue)]:
+                req = self.queue.popleft()
+                self._admitted(req)
+                Tb = -(-len(req.input_ids) // self.bucket) * self.bucket
+                try:
+                    embeds, _, cos, sin = self._embed_group(
+                        Tb, req.pixel_values is not None, [(b, req)])
+                except Exception:
+                    self.queue.appendleft(req)
+                    raise
+                self._slots[b].pending = True
+                self._slots[b].rid = req.rid
+                self._admitting.append(_Admission(b, req, Tb, Tb - len(req.input_ids),
+                                                  embeds[0], cos[0], sin[0]))
+                n += 1
+            if n:
+                self.admit_log.append((t0, time.perf_counter(), n))
 
     def _next_chunk(self):
         """The next (admission, dst, n) in FIFO order, or None."""
@@ -215,30 +221,35 @@ class ChunkedPrefillEngine(ServeEngine):
         """``steps_per_tick`` fused steps, one host fetch, then the harvest
         and the activation of every prompt whose last chunk rode the tick.
         Without decoding slots the tick runs only the chunks there are."""
-        K, B = self.steps_per_tick, self.slots
-        active = [b for b, s in enumerate(self._slots) if s.active]
-        rows = torch.as_tensor(active, device=self.device) if active else None
-        tokens, cur, starts, deltas = self._slot_tensors()
-        steps, firsts = [], []
-        for _ in range(K):
-            chunk = self._next_chunk()
-            if rows is None and chunk is None:
-                break
-            logits, flogits = self._fused_step(tokens, cur, starts, deltas, rows, chunk)
+        with profiling.span("serve.tick"):
+            K, B = self.steps_per_tick, self.slots
+            active = [b for b, s in enumerate(self._slots) if s.active]
+            rows = torch.as_tensor(active, device=self.device) if active else None
+            tokens, cur, starts, deltas = self._slot_tensors()
+            steps, firsts = [], []
+            for _ in range(K):
+                chunk = self._next_chunk()
+                if rows is None and chunk is None:
+                    break
+                if rows is not None:
+                    profiling.count("decode_steps")
+                with profiling.span("decode_step"):
+                    logits, flogits = self._fused_step(tokens, cur, starts, deltas, rows, chunk)
+                    if rows is not None:
+                        tokens = sample_tokens(logits, self.temps, self._gens, self.top_k)
+                        cur = cur + 1
+                        steps.append(tokens)
+                    if flogits is not None:
+                        firsts.append((chunk[0], torch.argmax(flogits)))
             if rows is not None:
-                tokens = sample_tokens(logits, self.temps, self._gens, self.top_k)
-                cur = cur + 1
-                steps.append(tokens)
-            if flogits is not None:
-                firsts.append((chunk[0], torch.argmax(flogits)))
-        if rows is not None:
-            self.decode_steps += K
-        # ONE fetch: the decode tokens and the completed prompts' first tokens
-        parts = [t.reshape(-1) for t in steps] + [f.reshape(1) for _, f in firsts]
-        fetched = torch.cat(parts).tolist() if parts else []
-        n_dec = len(steps) * B
-        self._harvest(np.asarray(fetched[:n_dec], np.int64).reshape(K, B) if steps
-                      else np.zeros((K, B), np.int64))
-        now = time.perf_counter()
-        for (a, _), tok in zip(firsts, fetched[n_dec:]):
-            self._activate(a.slot, a.req, int(tok), now)
+                self.decode_steps += K
+            # ONE fetch: the decode tokens and the completed prompts' first tokens
+            parts = [t.reshape(-1) for t in steps] + [f.reshape(1) for _, f in firsts]
+            with profiling.span("serve.fetch"):
+                fetched = torch.cat(parts).tolist() if parts else []
+            n_dec = len(steps) * B
+            self._harvest(np.asarray(fetched[:n_dec], np.int64).reshape(K, B) if steps
+                          else np.zeros((K, B), np.int64))
+            now = time.perf_counter()
+            for (a, _), tok in zip(firsts, fetched[n_dec:]):
+                self._activate(a.slot, a.req, int(tok), now)

@@ -57,6 +57,7 @@ from attwarp_tpu_torch.models.llama import (
     local_kv_heads,
     rope_cos_sin,
 )
+from attwarp_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -164,8 +165,11 @@ class ServeEngine:
         self.queue: deque = deque()
         self._pending: List[Tuple[int, Request, torch.Tensor]] = []
         self.results: Dict[int, List[int]] = {}
-        # per-request host wall clock: rid -> {submit, first_token, done}
+        # per-request host wall clock: rid -> {submit, admitted, first_token,
+        # done}; queue wait is admitted - submit
         self.request_stats: Dict[int, Dict[str, float]] = {}
+        # rid -> its open ``serve.queued`` span, while the recorder is on
+        self._queued: Dict[int, object] = {}
         # cadence records, the last LOG_LEN of each: one per tick (tick-end
         # clock, {rid: tokens consumed}) and one per admission wave (start,
         # end, requests admitted)
@@ -226,6 +230,9 @@ class ServeEngine:
         rid = self._next_rid
         self._next_rid += 1
         self.request_stats[rid] = {"submit": time.perf_counter()}
+        queued = profiling.begin("serve.queued", rid=rid)
+        if queued is not None:
+            self._queued[rid] = queued
         self.queue.append(Request(rid, ids,
                                   None if pixel_values is None
                                   else np.asarray(pixel_values, np.float32),
@@ -245,6 +252,13 @@ class ServeEngine:
         return self.results
 
     # ── admission ──────────────────────────────────────────────────────
+    def _admitted(self, req: Request) -> None:
+        """``req`` leaves the queue: its queue wait ends."""
+        self.request_stats[req.rid]["admitted"] = time.perf_counter()
+        queued = self._queued.pop(req.rid, None)
+        if queued is not None:
+            queued.end()
+
     def _admit(self):
         """Prefill queued requests into every free slot, batched by (length
         bucket, pixel shape) in power-of-two groups. The first tokens stay
@@ -257,40 +271,42 @@ class ServeEngine:
         n = min(len(free), len(self.queue))
         if n == 0:
             return
-        t0 = time.perf_counter()
-        pairs = []
-        for b in free[:n]:
-            req = self.queue.popleft()
-            self._slots[b].pending = True
-            self._slots[b].rid = req.rid
-            pairs.append((b, req))
-        admitted = set()
-        # startup ramp: pending slots do not count as decoding
-        cap = (self.admit_batch if any(s.active for s in self._slots)
-               else self.admit_batch_cold)
-        try:
-            groups: Dict[Tuple[int, Optional[Tuple[int, ...]]], List] = {}
-            for b, req in pairs:
-                Tb = -(-len(req.input_ids) // self.bucket) * self.bucket
-                pix = (None if req.pixel_values is None
-                       else tuple(req.pixel_values.shape))
-                groups.setdefault((Tb, pix), []).append((b, req))
-            for (Tb, pix), members in groups.items():
-                i = 0
-                while i < len(members):
-                    size = min(1 << ((len(members) - i).bit_length() - 1), cap)
-                    chunk = members[i:i + size]
-                    self._prefill_group(Tb, pix is not None, chunk)
-                    admitted.update(b for b, _ in chunk)
-                    i += size
-        except Exception:
-            for b, req in reversed([(b, r) for b, r in pairs if b not in admitted]):
-                self._slots[b].pending = False
-                self._slots[b].rid = -1
-                self.queue.appendleft(req)
-            raise
-        if admitted:
-            self.admit_log.append((t0, time.perf_counter(), len(admitted)))
+        with profiling.span("serve.admit"):
+            t0 = time.perf_counter()
+            pairs = []
+            for b in free[:n]:
+                req = self.queue.popleft()
+                self._admitted(req)
+                self._slots[b].pending = True
+                self._slots[b].rid = req.rid
+                pairs.append((b, req))
+            admitted = set()
+            # startup ramp: pending slots do not count as decoding
+            cap = (self.admit_batch if any(s.active for s in self._slots)
+                   else self.admit_batch_cold)
+            try:
+                groups: Dict[Tuple[int, Optional[Tuple[int, ...]]], List] = {}
+                for b, req in pairs:
+                    Tb = -(-len(req.input_ids) // self.bucket) * self.bucket
+                    pix = (None if req.pixel_values is None
+                           else tuple(req.pixel_values.shape))
+                    groups.setdefault((Tb, pix), []).append((b, req))
+                for (Tb, pix), members in groups.items():
+                    i = 0
+                    while i < len(members):
+                        size = min(1 << ((len(members) - i).bit_length() - 1), cap)
+                        chunk = members[i:i + size]
+                        self._prefill_group(Tb, pix is not None, chunk)
+                        admitted.update(b for b, _ in chunk)
+                        i += size
+            except Exception:
+                for b, req in reversed([(b, r) for b, r in pairs if b not in admitted]):
+                    self._slots[b].pending = False
+                    self._slots[b].rid = -1
+                    self.queue.appendleft(req)
+                raise
+            if admitted:
+                self.admit_log.append((t0, time.perf_counter(), len(admitted)))
 
     def _embed_group(self, Tb: int, with_image: bool, chunk):
         """Left-pad ``chunk`` = [(slot, request), ...] (one bucket, one
@@ -314,6 +330,8 @@ class ServeEngine:
             mask_np[j, pad:] = True
             self.cur_lens[b] = Tb
             self.starts[b] = pad
+        if profiling.recording():
+            profiling.count("prefill_tokens", int(mask_np.sum()))
         ids = torch.as_tensor(ids_np, device=dev)
         mask = torch.as_tensor(mask_np, device=dev)
         pixels = (torch.as_tensor(np.stack([r.pixel_values for _, r in chunk]), device=dev)
@@ -344,18 +362,19 @@ class ServeEngine:
         """One batched prefill (kernel K2 with ``use_flash`` where JAX's gate
         allows) on the prefill model and one grouped insert for ``chunk``,
         either family."""
-        embeds, mask, cos, sin = self._embed_group(Tb, with_image, chunk)
-        text = self.prefill_model.params["text" if self.family == "qwen2vl" else "llama"]
-        logits, block, _ = decoder_prefill(
-            text, self.tcfg, embeds, mask, cos, sin, max_seq=Tb,
-            use_flash=self.use_flash, kv_quant=self.kv_quant)
-        firsts = torch.argmax(logits, dim=-1)
-        if self.prefill_model is not self.model:
-            # one transfer per admission group: the finished block
-            block = type(block)(*(t.to(self.device) for t in block))
-            firsts = firsts.to(self.device)
-            self.kv_transfers += 1
-        self._insert(block, chunk, Tb, firsts)
+        with profiling.span("serve.prefill_group", n=len(chunk), Tb=Tb):
+            embeds, mask, cos, sin = self._embed_group(Tb, with_image, chunk)
+            text = self.prefill_model.params["text" if self.family == "qwen2vl" else "llama"]
+            logits, block, _ = decoder_prefill(
+                text, self.tcfg, embeds, mask, cos, sin, max_seq=Tb,
+                use_flash=self.use_flash, kv_quant=self.kv_quant)
+            firsts = torch.argmax(logits, dim=-1)
+            if self.prefill_model is not self.model:
+                # one transfer per admission group: the finished block
+                block = type(block)(*(t.to(self.device) for t in block))
+                firsts = firsts.to(self.device)
+                self.kv_transfers += 1
+            self._insert(block, chunk, Tb, firsts)
 
     def _insert(self, block, chunk, Tb: int, firsts: torch.Tensor) -> None:
         """Copy a group's prefill cache block (L, n, Tb, ...) into its
@@ -423,24 +442,29 @@ class ServeEngine:
         return logits
 
     def _tick(self):
-        K, B = self.steps_per_tick, self.slots
-        tokens, cur, starts, deltas = self._slot_tensors()
-        steps = []
-        for _ in range(K):
-            logits = self._decode_step(tokens, cur, starts, deltas)
-            tokens = sample_tokens(logits, self.temps, self._gens, self.top_k)
-            cur = cur + 1
-            steps.append(tokens)
-        self.decode_steps += K
-        # ONE fetch: the tick's tokens and the pending admissions' first
-        # tokens (pending slots join the next tick)
-        fetched = torch.cat([torch.stack(steps).reshape(-1)]
-                            + [f.reshape(1) for _, _, f in self._pending]).tolist()
-        chunk = np.asarray(fetched[:K * B], np.int64).reshape(K, B)
-        self._harvest(chunk)
-        if self._pending:
-            self._activate_pending(fetched[K * B:])
+        with profiling.span("serve.tick"):
+            K, B = self.steps_per_tick, self.slots
+            tokens, cur, starts, deltas = self._slot_tensors()
+            steps = []
+            for _ in range(K):
+                profiling.count("decode_steps")
+                with profiling.span("decode_step"):
+                    logits = self._decode_step(tokens, cur, starts, deltas)
+                    tokens = sample_tokens(logits, self.temps, self._gens, self.top_k)
+                    cur = cur + 1
+                    steps.append(tokens)
+            self.decode_steps += K
+            # ONE fetch: the tick's tokens and the pending admissions' first
+            # tokens (pending slots join the next tick)
+            with profiling.span("serve.fetch"):
+                fetched = torch.cat([torch.stack(steps).reshape(-1)]
+                                    + [f.reshape(1) for _, _, f in self._pending]).tolist()
+            chunk = np.asarray(fetched[:K * B], np.int64).reshape(K, B)
+            self._harvest(chunk)
+            if self._pending:
+                self._activate_pending(fetched[K * B:])
 
+    @profiling.span("serve.harvest")
     def _harvest(self, chunk: np.ndarray) -> None:
         """Hand a tick's tokens (K, B) to the active slots. A slot consumes
         tokens up to and including EOS (at any step, the last one too) or

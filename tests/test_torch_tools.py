@@ -265,15 +265,17 @@ def test_bench_pipeline_returns_the_pipelines_outputs(llava_backend):
 
 
 def test_profile_pipeline_runs_the_pipelines_work(llava_backend):
-    """The phases end in the maps, warp and second answers of
-    ``AttWarpPipeline.run`` on the same images."""
+    """The tool reads the spans of ``AttWarpPipeline.run`` itself: one
+    figure a span name of the pipeline, none above the run's, and the
+    maps, warp and second answers of a plain run on the same images."""
     r = profile_pipeline.run(llava_backend, B=2, iters=1)
     assert set(r["seconds"]) == set(profile_pipeline.PHASES)
+    assert all(0 < v <= r["total"] for v in r["seconds"].values())
     ref = AttWarpPipeline(llava_backend, warp_size=500, max_new_tokens=20).run(
         r["images"], r["questions"])
     assert r["answers"] == ref.second_answers
-    np.testing.assert_array_equal(r["maps"].numpy(), ref.attention_maps)
-    np.testing.assert_array_equal(r["warped"].numpy(), ref.warped)
+    np.testing.assert_array_equal(r["maps"], ref.attention_maps)
+    np.testing.assert_array_equal(r["warped"], ref.warped)
 
 
 @pytest.mark.parametrize("family", ["llava", "qwen"])
