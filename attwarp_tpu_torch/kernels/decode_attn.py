@@ -6,7 +6,8 @@
 - ``k_q``/``v_q`` (L, B, S, kvH, hd) int8 and ``k_s``/``v_s`` (L, B, S, kvH)
   f32: the WHOLE cache, read at plane ``layer`` (no plane is copied);
 - ``mask`` (B, S) bool: valid slots, including the token just written;
-- returns (B, H, hd) in q's dtype.
+- returns (B, H, hd) in q's dtype, written into ``out`` where given (the
+  graphed decode step's static buffer, ``models/decode_graph.py``).
 
 The caller writes the current token's int8 K/V into the cache first; the
 kernel reads the updated plane. (The TPU kernel read the step-entry cache and
@@ -122,10 +123,11 @@ def decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer: int,
 
 
 def decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer: int,
-                     sm_scale: float) -> torch.Tensor:
+                     sm_scale: float, out=None) -> torch.Tensor:
     profiling.count("k3.calls")
     if q.device.type == "cpu":
-        return decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm_scale)
+        res = decode_attn_plain(q, k_q, k_s, v_q, v_s, mask, layer, sm_scale)
+        return res if out is None else out.copy_(res)
     if k_q.ndim != 5 or k_q.shape != v_q.shape:
         raise ValueError(f"decode_attn_int8: k_q/v_q must be (L, B, S, kvH, "
                          f"hd); got {tuple(k_q.shape)}, {tuple(v_q.shape)}")
@@ -150,9 +152,14 @@ def decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer: int,
             raise TypeError(f"decode_attn_int8: {name} must be {dt}, got {t.dtype}")
     if not q.is_floating_point():
         raise TypeError(f"decode_attn_int8: q must be floating, got {q.dtype}")
+    if out is not None and (tuple(out.shape) != (B, H, hd) or out.dtype != q.dtype
+                            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError(f"decode_attn_int8: out must be a contiguous ({B}, {H}, {hd}) "
+                         f"{q.dtype} tensor on {q.device}")
     qb = q.to(torch.bfloat16).contiguous()
     require_cuda("decode_attn_int8", qb, k_q, k_s, v_q, v_s, mask)
-    out = torch.empty((B, H, hd), dtype=torch.bfloat16, device=q.device)
+    res = (out if out is not None and out.dtype == torch.bfloat16 else
+           torch.empty((B, H, hd), dtype=torch.bfloat16, device=q.device))
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_split, chunk = decode_split_plan(B, kvH, S, sms)
     # the splits' partial states: (B, H, n_split) acc, then m and l
@@ -162,13 +169,15 @@ def decode_attn_int8(q, k_q, k_s, v_q, v_s, mask, layer: int,
         stream = torch.cuda.current_stream().cuda_stream
         rc = library().attwarp_decode_attn_int8(
             qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            v_s.data_ptr(), mask.data_ptr(), res.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             L, B, S, H, kvH, hd, int(layer), n_split, chunk, float(sm_scale), stream,
         )
     check_launch(rc, "decode_attn_int8")
     decode_attn_int8.launches += 1
-    return out.to(q.dtype)
+    if out is None:
+        return res.to(q.dtype)
+    return out if res is out else out.copy_(res)
 
 
 decode_attn_int8.launches = 0

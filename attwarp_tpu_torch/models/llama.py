@@ -21,6 +21,13 @@ K3 (``kernels/decode_attn.py``); a listed layer keeps the plain
 ``extract_layer`` is None, a layer or a sequence of layers
 (``extract_layers_tuple``), whose rows come back stacked in its order.
 
+The decode step is written as ``decode_segment``s, split at the attention
+call of every layer that ``extract_layer`` does not list. On the card, over
+a cache leased from the pool (``lease_kv_cache``, as both generate loops and
+the serving engine take theirs), the segments are replayed from CUDA graphs
+and K3 runs eagerly between them (``models/decode_graph.py``); elsewhere
+the same segments run eagerly.
+
 A tensor-parallel rank's tree (``parallel/llava_sharding.py``) carries a
 ``parallel/comm.py::ModelShard`` under ``"tp"``: the head counts come from
 the tensors, the cache holds the rank's kv heads (``local_kv_heads``), the
@@ -39,9 +46,11 @@ custom call reading an updated buffer forced a copy, and is not ported.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +58,7 @@ import torch.nn.functional as F
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
+from attwarp_tpu_torch.models import decode_graph
 from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv, row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, all_reduce, split_group
 from attwarp_tpu_torch.utils import profiling
@@ -118,19 +128,58 @@ def init_quant_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
     return QuantKVCache(values(), scales(), values(), scales())
 
 
+def lease_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int, device, kv_heads: int,
+                   dtype=None):
+    """A zeroed cache from the pool (``models/decode_graph.py::KV_POOL``):
+    int8 where ``dtype`` is None, else dense in ``dtype``. Its owner gives
+    it back with ``release_kv_cache``; a decode step over a leased cache on
+    the card replays CUDA graphs."""
+    device = torch.device(device)
+    key = ("int8" if dtype is None else dtype, cfg.num_hidden_layers, batch, max_seq,
+           kv_heads, cfg.head_dim, device)
+    make = (functools.partial(init_quant_kv_cache, cfg, batch, max_seq, device, kv_heads)
+            if dtype is None else
+            functools.partial(init_kv_cache, cfg, batch, max_seq, dtype, device, kv_heads))
+    return decode_graph.KV_POOL.lease(key, make)
+
+
+def release_kv_cache(kv) -> None:
+    """Give a leased cache back to the pool (a no-op for any other)."""
+    decode_graph.KV_POOL.release(kv)
+
+
+@contextlib.contextmanager
+def leased_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int, device, kv_heads: int,
+                    dtype=None) -> Iterator[Any]:
+    """``lease_kv_cache`` for the body, released at its end."""
+    kv = lease_kv_cache(cfg, batch, max_seq, device, kv_heads, dtype)
+    try:
+        yield kv
+    finally:
+        release_kv_cache(kv)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+@functools.lru_cache(maxsize=None)
+def rope_inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """HF's rotary ``inv_freq`` (f32, over the even indices), made on
+    ``device`` once per (head_dim, theta, device): a decode step then copies
+    nothing from the host."""
+    inv_freq = 1.0 / (
+        theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    return torch.as_tensor(inv_freq, dtype=torch.float32, device=device)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                  theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (...,) -> (cos, sin) of shape (..., head_dim), f32 (HF
     layout: inv_freq over even indices, duplicated across both halves)."""
-    inv_freq = 1.0 / (
-        theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
-    inv = torch.as_tensor(inv_freq, dtype=torch.float32, device=positions.device)
+    inv = rope_inv_freq(head_dim, theta, positions.device)
     freqs = positions[..., None].to(torch.float32) * inv
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -322,13 +371,15 @@ def _stack_rows(rows: Dict[int, torch.Tensor], extract_layer: ExtractSpec,
 
 def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
                     max_seq: int, extract_layer: ExtractSpec = None,
-                    use_flash: bool = False, kv_quant: bool = False):
+                    use_flash: bool = False, kv_quant: bool = False, cache=None):
     """The prefill body of both families, given each position's rotary
     ``cos``/``sin`` (B, T, hd): LLaMA's from ``rope_cos_sin``, Qwen2-VL's
     from M-RoPE. Returns (last-position logits (B, vocab) f32, the KV cache
-    allocated to ``max_seq`` slots, the extract rows or None): an int
+    of ``max_seq`` slots, the extract rows or None): an int
     ``extract_layer`` gives its layer's last-row probabilities (B, H, T), a
     sequence one row per listed layer, (L, B, H, T) in the spec's order.
+    The cache is allocated here, or is ``cache``, a zeroed one of that size
+    and kind (``lease_kv_cache``), written in place.
 
     ``use_flash`` takes kernel K2 where ``flash_prefill_supported`` says so;
     the listed layers' rows then come from ``_last_row_probs`` (the causal
@@ -345,10 +396,16 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
             causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
             mask = causal & attention_mask[:, None, :]
         kvh = local_kv_heads(params, cfg)
-        if kv_quant:
-            cache = init_quant_kv_cache(cfg, B, max_seq, dev, kvh)
-        else:
-            cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev, kvh)
+        if cache is None:
+            if kv_quant:
+                cache = init_quant_kv_cache(cfg, B, max_seq, dev, kvh)
+            else:
+                cache = init_kv_cache(cfg, B, max_seq, inputs_embeds.dtype, dev, kvh)
+        elif (isinstance(cache, QuantKVCache) != kv_quant
+              or tuple(cache[0].shape[1:4]) != (B, max_seq, kvh)):
+            raise ValueError(f"decoder_prefill: the cache given is not a "
+                             f"{'int8' if kv_quant else 'dense'} cache of "
+                             f"({B}, {max_seq}, {kvh}) slots")
 
         x = inputs_embeds
         rows = {}
@@ -381,16 +438,17 @@ def llama_prefill(
     extract_layer: ExtractSpec = None,
     use_flash: bool = False,
     kv_quant: bool = False,
+    cache=None,
 ):
     """Full-prompt forward (``decoder_prefill`` with LLaMA's rotary
-    positions). With ``kv_quant`` the cache is int8; the prefill's own
-    attention still uses the exact keys and values, so its logits and row
-    equal the dense-cache path's."""
+    positions), into ``cache`` where given. With ``kv_quant`` the cache is
+    int8; the prefill's own attention still uses the exact keys and values,
+    so its logits and row equal the dense-cache path's."""
     # HF left-padding convention: position ids count valid tokens
     positions = torch.clamp(torch.cumsum(attention_mask.to(torch.int64), dim=1) - 1, min=0)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     return decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
-                           max_seq, extract_layer, use_flash, kv_quant)
+                           max_seq, extract_layer, use_flash, kv_quant, cache)
 
 
 def append_token(kv, layer: int, at, k1: torch.Tensor, v1: torch.Tensor) -> None:
@@ -407,17 +465,57 @@ def append_token(kv, layer: int, at, k1: torch.Tensor, v1: torch.Tensor) -> None
 
 
 def attend_cache(kv, layer: int, q: torch.Tensor, kv_mask: torch.Tensor,
-                 cfg) -> torch.Tensor:
+                 cfg, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One query per row (B, 1, H, hd) over cache plane ``layer`` where
     ``kv_mask`` (B, S) allows: kernel K3 on an int8 cache, ``_attn`` on a
-    dense one. Returns (B, 1, hidden)."""
+    dense one. Returns (B, 1, hidden), written into ``out`` where given."""
+    B = q.shape[0]
     if isinstance(kv, QuantKVCache):
         return decode_attn_int8(
             q[:, 0], kv.k_q, kv.k_s, kv.v_q, kv.v_s, kv_mask, layer=layer,
             sm_scale=1.0 / math.sqrt(cfg.head_dim),
-        ).reshape(q.shape[0], 1, -1)
-    return _attn(q, kv.k[layer], kv.v[layer], kv_mask[:, None, :], cfg,
+            out=None if out is None else out.view(B, *q.shape[2:]),
+        ).reshape(B, 1, -1)
+    attn = _attn(q, kv.k[layer], kv.v[layer], kv_mask[:, None, :], cfg,
                  want_probs=False)[0]
+    return attn if out is None else out.copy_(attn)
+
+
+def _pre_attention(lp, cfg, x, cos, sin, kv, layer: int, at) -> torch.Tensor:
+    """A layer's input norm, q/k/v projections and rotary, with the new
+    token's K/V written into the cache at ``at``; returns q (B, 1, H, hd)."""
+    q, k1, v1 = _qkv(lp, cfg, x, cos, sin)
+    append_token(kv, layer, at, k1[:, 0], v1[:, 0])
+    return q
+
+
+def decode_segment(params, cfg, kv, lo: int, hi: int, x, attn, at, cos, sin, kv_mask):
+    """The part of a decode step between the attention of layer ``lo`` and
+    that of layer ``hi``, two layers that ``extract_layer`` does not list:
+    ``lo``'s o_proj and MLP residuals (``lo`` = -1: none, ``x`` is the
+    token's embeddings), every listed layer in between whole (its
+    probabilities row through the plain ``_attn_quantcache`` or ``_attn``),
+    and ``hi``'s work before its attention (``hi`` = the layer count: the
+    final norm and the LM head instead). Returns (x, ``hi``'s q or the f32
+    logits (B, vocab), {listed layer: row}). The eager step and the graphs
+    of ``models/decode_graph.py`` both run the step as these segments."""
+    layers = params["layers"]
+    rows = {}
+    if lo >= 0:
+        x = layer_residuals(layers[lo], cfg, x, attn)
+    for i in range(lo + 1, hi):
+        q = _pre_attention(layers[i], cfg, x, cos, sin, kv, i, at)
+        if isinstance(kv, QuantKVCache):
+            a, rows[i] = _attn_quantcache(
+                q, kv.k_q[i], kv.k_s[i], kv.v_q[i], kv.v_s[i],
+                kv_mask[:, None, :], cfg, want_probs=True)
+        else:
+            a, rows[i] = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
+                               want_probs=True)
+        x = layer_residuals(layers[i], cfg, x, a)
+    if hi == len(layers):
+        return x, final_logits(params, cfg, x[:, 0]), rows
+    return x, _pre_attention(layers[hi], cfg, x, cos, sin, kv, hi, at), rows
 
 
 def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
@@ -433,28 +531,39 @@ def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
     new K/V there in place before it attends. On an int8 cache, every layer
     not listed in ``extract_layer`` attends through kernel K3 over the whole
     cache with its layer index; the listed ones take the plain
-    ``_attn_quantcache``, which gives their probabilities rows."""
+    ``_attn_quantcache``, which gives their probabilities rows.
+
+    The step is ``decode_segment``s split at the attention of every layer
+    not listed. On the card, over a cache from ``lease_kv_cache`` and a
+    tree with no ``"tp"`` shard, they are replayed from CUDA graphs
+    captured after the key's first step, the attention run eagerly between
+    them (``models/decode_graph.py``); elsewhere they run eagerly."""
     want = _check_layer(extract_layer, cfg)
+    L = cfg.num_hidden_layers
+    ends = tuple(i for i in range(L) if i not in want) + (L,)
+    graphs = decode_graph.graphs_for(params, kv, token_embeds,
+                                     (cfg, want, token_embeds.dtype))
+    if graphs is not None and graphs.graphs:
+        logits, rows = graphs.replay(token_embeds, cur_len, cos, sin, kv_mask)
+        return logits, kv, _stack_rows(rows, extract_layer, params)
+    profiling.count("decode_graph.eager")
     # one advanced-index write per cache tensor for per-slot positions (the
     # counterpart of JAX's serving/engine.py::_upd_slot)
     at = ((slice(None), cur_len) if isinstance(cur_len, int) else
           (torch.arange(token_embeds.shape[0], device=token_embeds.device), cur_len))
-    x = token_embeds
-    rows = {}
-    for i, lp in enumerate(params["layers"]):
-        q, k1, v1 = _qkv(lp, cfg, x, cos, sin)
-        append_token(kv, i, at, k1[:, 0], v1[:, 0])
-        if i not in want:
-            attn = attend_cache(kv, i, q, kv_mask, cfg)
-        elif isinstance(kv, QuantKVCache):
-            attn, rows[i] = _attn_quantcache(
-                q, kv.k_q[i], kv.k_s[i], kv.v_q[i], kv.v_s[i],
-                kv_mask[:, None, :], cfg, want_probs=True)
-        else:
-            attn, rows[i] = _attn(q, kv.k[i], kv.v[i], kv_mask[:, None, :], cfg,
-                                  want_probs=True)
-        x = layer_residuals(lp, cfg, x, attn)
-    return final_logits(params, cfg, x[:, 0]), kv, _stack_rows(rows, extract_layer, params)
+    x, attn, rows, lo = token_embeds, None, {}, -1
+    for hi in ends:
+        x, out, r = decode_segment(params, cfg, kv, lo, hi, x, attn, at, cos, sin, kv_mask)
+        rows.update(r)
+        if hi < L:
+            attn = attend_cache(kv, hi, out, kv_mask, cfg)
+        lo = hi
+    if graphs is not None:
+        graphs.capture(
+            functools.partial(decode_segment, params, cfg, kv),
+            lambda layer, q, mask, into: attend_cache(kv, layer, q, mask, cfg, out=into),
+            ends, token_embeds, cos, sin, kv_mask, cfg.num_attention_heads * cfg.head_dim)
+    return out, kv, _stack_rows(rows, extract_layer, params)
 
 
 def llama_decode_step(

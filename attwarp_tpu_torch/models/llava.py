@@ -30,8 +30,10 @@ from attwarp_tpu_torch.models.llama import (
     ExtractSpec,
     LlamaConfig,
     embed,
+    leased_kv_cache,
     llama_decode_step,
     llama_prefill,
+    local_kv_heads,
 )
 from attwarp_tpu_torch.numerics.quant import is_quantized, row_linear
 from attwarp_tpu_torch.parallel.comm import split_group
@@ -148,37 +150,42 @@ class LlavaModel:
             return accumulate_step(carry, row, img_start, ones, n_img)
 
         embeds = embed_and_splice(params, cfg, input_ids, pixel_values)
-        logits, kv, row0 = llama_prefill(
-            params["llama"], tcfg, embeds, attention_mask, max_seq=max_seq,
-            extract_layer=extract_layer, use_flash=use_flash, kv_quant=kv_quant,
-        )
-        del embeds
-        carry = init_layer_carry(extract_layer, B, n_img, input_ids.device)
-        carry = acc(carry, row0)
-        tok = torch.argmax(logits, dim=-1)
-        finished = tok == cfg.eos_token_id
-        lengths = torch.sum(attention_mask.to(torch.int64), dim=1)
-        full_mask = F.pad(attention_mask, (0, max_seq - T))
-        toks = [tok.new_empty((B, 0))]
-        for step in range(max_new_tokens):
-            profiling.count("decode_steps")
-            with profiling.span("decode_step"):
-                cur_len = T + step
-                full_mask[:, cur_len] = True
-                emb = embed(params["llama"], tok)[:, None, :]
-                logits, kv, row = llama_decode_step(
-                    params["llama"], tcfg, emb, kv, cur_len, lengths + step,
-                    full_mask, extract_layer=extract_layer,
-                )
-                # every step's row counts, finished rows included (HF generate
-                # keeps forwarding them; llava.py:384-411)
-                carry = acc(carry, row)
-                toks.append(tok[:, None])
-                nxt = torch.argmax(logits, dim=-1)
-                # finished rows continue with PAD, as HF generate does
-                nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-                finished = finished | (nxt == cfg.eos_token_id)
-                tok = nxt
+        # the cache comes from the pool, so the decode steps replay CUDA graphs
+        with leased_kv_cache(tcfg, B, max_seq, embeds.device,
+                             local_kv_heads(params["llama"], tcfg),
+                             None if kv_quant else embeds.dtype) as kv:
+            logits, kv, row0 = llama_prefill(
+                params["llama"], tcfg, embeds, attention_mask, max_seq=max_seq,
+                extract_layer=extract_layer, use_flash=use_flash, kv_quant=kv_quant,
+                cache=kv,
+            )
+            del embeds
+            carry = init_layer_carry(extract_layer, B, n_img, input_ids.device)
+            carry = acc(carry, row0)
+            tok = torch.argmax(logits, dim=-1)
+            finished = tok == cfg.eos_token_id
+            lengths = torch.sum(attention_mask.to(torch.int64), dim=1)
+            full_mask = F.pad(attention_mask, (0, max_seq - T))
+            toks = [tok.new_empty((B, 0))]
+            for step in range(max_new_tokens):
+                profiling.count("decode_steps")
+                with profiling.span("decode_step"):
+                    cur_len = T + step
+                    full_mask[:, cur_len] = True
+                    emb = embed(params["llama"], tok)[:, None, :]
+                    logits, kv, row = llama_decode_step(
+                        params["llama"], tcfg, emb, kv, cur_len, lengths + step,
+                        full_mask, extract_layer=extract_layer,
+                    )
+                    # every step's row counts, finished rows included (HF generate
+                    # keeps forwarding them; llava.py:384-411)
+                    carry = acc(carry, row)
+                    toks.append(tok[:, None])
+                    nxt = torch.argmax(logits, dim=-1)
+                    # finished rows continue with PAD, as HF generate does
+                    nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
+                    finished = finished | (nxt == cfg.eos_token_id)
+                    tok = nxt
         maps = None if carry is None else finalize(carry, side)
         return torch.cat(toks, dim=1), maps
 

@@ -44,6 +44,9 @@ from attwarp_tpu_torch.models.llama import (
     decoder_decode_step,
     decoder_prefill,
     embed,
+    leased_kv_cache,
+    local_kv_heads,
+    rope_inv_freq,
 )
 from attwarp_tpu_torch.numerics.quant import row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, split_group
@@ -281,11 +284,7 @@ def mrope_cos_sin(positions: torch.Tensor, cfg: Qwen2VLTextConfig
     """3-stream positions (3, B, T) -> effective (cos, sin) of shape
     (B, T, head_dim), f32, with channels interleaved per ``mrope_section``
     (HF apply_multimodal_rotary_pos_emb semantics)."""
-    hd = cfg.head_dim
-    inv_freq = 1.0 / (
-        cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd)
-    )
-    inv = torch.as_tensor(inv_freq, dtype=torch.float32, device=positions.device)
+    inv = rope_inv_freq(cfg.head_dim, cfg.rope_theta, positions.device)
     freqs = positions[..., None].to(torch.float32) * inv          # (3, B, T, hd/2)
     emb = torch.cat([freqs, freqs], dim=-1)                       # (3, B, T, hd)
     cos3, sin3 = torch.cos(emb), torch.sin(emb)
@@ -304,16 +303,17 @@ def mrope_cos_sin(positions: torch.Tensor, cfg: Qwen2VLTextConfig
 def qwen2vl_prefill(
     params, cfg: Qwen2VLTextConfig, inputs_embeds, attention_mask, cos, sin,
     max_seq: int, extract_layer: ExtractSpec = None, kv_quant: bool = False,
-    use_flash: bool = False,
+    use_flash: bool = False, cache=None,
 ):
     """Returns (last logits (B, vocab) f32, the KV cache, the extract rows:
     (B, H, T) for a layer, (L, B, H, T) for a sequence of layers, or None):
-    ``decoder_prefill`` at M-RoPE's ``cos``/``sin``.
+    ``decoder_prefill`` at M-RoPE's ``cos``/``sin``, into ``cache`` where
+    given.
     M-RoPE only changes the rotary tables applied to q and k before
     attention, so ``use_flash`` runs the same kernel K2 as LLaVA's prefill
     (JAX gate: 256 tokens and up)."""
     return decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
-                           max_seq, extract_layer, use_flash, kv_quant)
+                           max_seq, extract_layer, use_flash, kv_quant, cache)
 
 
 def qwen2vl_decode_step(
@@ -442,37 +442,40 @@ class Qwen2VLModel:
 
         embeds = embed_and_splice(params, cfg, input_ids, self.image_features(patches, grid_thw))
         cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), tcfg)
-        logits, kv, row0 = qwen2vl_prefill(
-            params["text"], tcfg, embeds, attention_mask, cos, sin,
-            max_seq=max_seq, extract_layer=extract_layer, kv_quant=kv_quant,
-            use_flash=use_flash,
-        )
-        del embeds, cos, sin
-        carry = acc(init_layer_carry(extract_layer, B, n_img, dev), row0)
-        tok = torch.argmax(logits, dim=-1)
-        finished = tok == cfg.eos_token_id
-        full_mask = F.pad(attention_mask, (0, max_seq - T))
-        toks = [tok.new_empty((B, 0))]
-        for step in range(max_new_tokens):
-            profiling.count("decode_steps")
-            with profiling.span("decode_step"):
-                cur_len = T + step
-                full_mask[:, cur_len] = True
-                # all three M-RoPE streams share the text position after the prompt
-                p = T + deltas + step                                  # (B,)
-                cos1, sin1 = mrope_cos_sin(p[None, :, None].expand(3, B, 1), tcfg)
-                emb = embed(params["text"], tok)[:, None, :]
-                logits, kv, row = qwen2vl_decode_step(
-                    params["text"], tcfg, emb, kv, cur_len, cos1, sin1, full_mask,
-                    extract_layer=extract_layer,
-                )
-                carry = acc(carry, row)
-                toks.append(tok[:, None])
-                nxt = torch.argmax(logits, dim=-1)
-                # finished rows continue with PAD, as HF generate does
-                nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-                finished = finished | (nxt == cfg.eos_token_id)
-                tok = nxt
+        # the cache comes from the pool, so the decode steps replay CUDA graphs
+        with leased_kv_cache(tcfg, B, max_seq, dev, local_kv_heads(params["text"], tcfg),
+                             None if kv_quant else embeds.dtype) as kv:
+            logits, kv, row0 = qwen2vl_prefill(
+                params["text"], tcfg, embeds, attention_mask, cos, sin,
+                max_seq=max_seq, extract_layer=extract_layer, kv_quant=kv_quant,
+                use_flash=use_flash, cache=kv,
+            )
+            del embeds, cos, sin
+            carry = acc(init_layer_carry(extract_layer, B, n_img, dev), row0)
+            tok = torch.argmax(logits, dim=-1)
+            finished = tok == cfg.eos_token_id
+            full_mask = F.pad(attention_mask, (0, max_seq - T))
+            toks = [tok.new_empty((B, 0))]
+            for step in range(max_new_tokens):
+                profiling.count("decode_steps")
+                with profiling.span("decode_step"):
+                    cur_len = T + step
+                    full_mask[:, cur_len] = True
+                    # all three M-RoPE streams share the text position after the prompt
+                    p = T + deltas + step                                  # (B,)
+                    cos1, sin1 = mrope_cos_sin(p[None, :, None].expand(3, B, 1), tcfg)
+                    emb = embed(params["text"], tok)[:, None, :]
+                    logits, kv, row = qwen2vl_decode_step(
+                        params["text"], tcfg, emb, kv, cur_len, cos1, sin1, full_mask,
+                        extract_layer=extract_layer,
+                    )
+                    carry = acc(carry, row)
+                    toks.append(tok[:, None])
+                    nxt = torch.argmax(logits, dim=-1)
+                    # finished rows continue with PAD, as HF generate does
+                    nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
+                    finished = finished | (nxt == cfg.eos_token_id)
+                    tok = nxt
         maps = None if carry is None else finalize(carry, side_h, side_w)
         return torch.cat(toks, dim=1), maps
 

@@ -7,7 +7,10 @@ answers never hold up long ones. Both model families serve: LLaVA-1.5 and
 Qwen2-VL (M-RoPE, per-request position deltas).
 
 - **Slot cache**: one ``(L, slots, max_seq, kvH, hd)`` KV cache, dense or
-  int8 (``kv_quant``). Each prompt is left-padded inside its 64-token
+  int8 (``kv_quant``), leased from the pool (``models/llama.py::
+  lease_kv_cache``) and given back when the engine is freed, so the next
+  engine of the same shape replays the decode step's CUDA graphs captured
+  over it (``models/decode_graph.py``). Each prompt is left-padded inside its 64-token
   bucket: cache positions ``[0, start)`` hold masked padding,
   ``[start, cur_len)`` the prompt, and the rotary position of a new token
   is ``cur_len - start`` (plus the request's M-RoPE delta for Qwen2-VL).
@@ -40,6 +43,7 @@ memory and the cache's real element sizes.
 from __future__ import annotations
 
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -52,9 +56,9 @@ from attwarp_tpu_torch.models.llama import (
     decoder_decode_step,
     decoder_prefill,
     embed,
-    init_kv_cache,
-    init_quant_kv_cache,
+    lease_kv_cache,
     local_kv_heads,
+    release_kv_cache,
     rope_cos_sin,
 )
 from attwarp_tpu_torch.utils import profiling
@@ -144,11 +148,9 @@ class ServeEngine:
         self.kv_transfers = 0   # KV blocks moved from the prefill model's device
         # a tensor-parallel model's slot cache holds its rank's kv heads
         kvh = local_kv_heads(self.text_params, self.tcfg)
-        if kv_quant:
-            self.kv = init_quant_kv_cache(self.tcfg, slots, max_seq, self.device, kvh)
-        else:
-            self.kv = init_kv_cache(self.tcfg, slots, max_seq,
-                                    self.text_params["embed_tokens"].dtype, self.device, kvh)
+        self.kv = lease_kv_cache(self.tcfg, slots, max_seq, self.device, kvh,
+                                 None if kv_quant else self.text_params["embed_tokens"].dtype)
+        weakref.finalize(self, release_kv_cache, self.kv)
         if admit_batch_cold == 0:
             self.admit_batch_cold = self._fit_cold_cap(self.admit_batch_cold)
         self._positions = torch.arange(max_seq, device=self.device)
