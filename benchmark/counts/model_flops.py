@@ -1,6 +1,9 @@
 """Model FLOPs a request needs, counted from a configuration's widths and
 the request's token counts: the benchmark's yardstick for the ``mfu``
-metrics.
+metrics. Each family's module (``benchmark/families/<family>.py``) counts
+its own model with these functions in ``image_flops`` and
+``request_flops``; a family whose shape they do not describe brings its own
+count there.
 
 The count is of the mathematics, whatever implements it: every matrix
 product at 2 flops a multiply-add, attention's q.k and p.v over the causal
@@ -83,7 +86,9 @@ def qwen2vl_vision_flops(embed_dim: int, mlp_ratio: int, depth: int, image_size:
 
 
 def decoder_dims(c: dict) -> DecoderDims:
-    """The decoder's widths from a configuration file."""
+    """A dense decoder's widths from a configuration file: multi-head or
+    grouped-query attention with ``hidden / heads`` wide heads and one
+    gated MLP width in every layer (LLaVA-1.5's Llama, Qwen2-VL's Qwen2)."""
     t = c.get("text_config", c)
     H = t["num_attention_heads"]
     return DecoderDims(hidden=t["hidden_size"], heads=H,
@@ -91,16 +96,3 @@ def decoder_dims(c: dict) -> DecoderDims:
                        head_dim=t["hidden_size"] // H, ffn=t["intermediate_size"],
                        vocab=t["vocab_size"], layers=t["num_hidden_layers"])
 
-
-def vision_flops(c: dict) -> int:
-    """One image through the configuration's vision tower and projector."""
-    v = c["vision_config"]
-    if c["family"] == "llava":
-        run = c["vision_feature_layer"] % (v["num_hidden_layers"] + 1)
-        return clip_tower_flops(v["hidden_size"], v["intermediate_size"], v["image_size"],
-                                v["patch_size"], run, c["text_config"]["hidden_size"])
-    if c["family"] == "qwen2vl":
-        return qwen2vl_vision_flops(v["embed_dim"], v["mlp_ratio"], v["depth"], c["image_size"],
-                                    v["patch_size"], v["spatial_merge_size"],
-                                    v["temporal_patch_size"], c["hidden_size"])
-    raise ValueError(f"no vision count for family {c['family']!r}")

@@ -6,6 +6,9 @@ draws every random leaf from one ``torch.Generator`` on the device in ONE
 ``normal_`` call over a flat buffer, in the type the weights are served in,
 and hands out views of it: no leaf is drawn on its own, nothing is made on
 the host. The same seed gives the same weights.
+
+``request_flops`` is the decoder count of a dense MHA/GQA family, which
+such a family exports as its own.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+
+from benchmark.counts import model_flops
 
 Leaf = Tuple[Tuple[Union[str, int], ...], Tuple[int, ...], Union[float, str]]
 
@@ -69,3 +74,11 @@ def make_tree(leaves: List[Leaf], seed: int, device, dtype) -> Dict[str, Any]:
 
 def count_params(leaves: List[Leaf]) -> int:
     return sum(_numel(s) for _, s, _ in leaves)
+
+
+def request_flops(c: Dict[str, Any], n_prompt: int, n_fed: int, n_head: int,
+                  n_partial: int = 0, partial_layers: int = 0) -> int:
+    """One sequence through a dense decoder
+    (``counts/model_flops.py::decoder_flops``)."""
+    return model_flops.decoder_flops(model_flops.decoder_dims(c), n_prompt, n_fed, n_head,
+                                     n_partial, partial_layers)

@@ -14,7 +14,8 @@ from typing import Any, Dict, List
 
 import torch
 
-from benchmark.families.common import Leaf, make_tree
+from benchmark.counts import model_flops
+from benchmark.families.common import Leaf, make_tree, request_flops  # noqa: F401
 
 
 def leaves(c: Dict[str, Any]) -> List[Leaf]:
@@ -115,3 +116,13 @@ def reference(c: Dict[str, Any], params: Dict[str, Any], precision: str = "f32")
     from benchmark.reference.llava import LlavaReference
 
     return LlavaReference(c, params, precision)
+
+
+def image_flops(c: Dict[str, Any]) -> int:
+    """One image through CLIP's layers up to the feature layer and the
+    projector (``counts/model_flops.py``)."""
+    v = c["vision_config"]
+    run = c["vision_feature_layer"] % (v["num_hidden_layers"] + 1)
+    return model_flops.clip_tower_flops(v["hidden_size"], v["intermediate_size"],
+                                        v["image_size"], v["patch_size"], run,
+                                        c["text_config"]["hidden_size"])

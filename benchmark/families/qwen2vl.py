@@ -8,7 +8,8 @@ from typing import Any, Dict, List
 
 import torch
 
-from benchmark.families.common import Leaf, make_tree
+from benchmark.counts import model_flops
+from benchmark.families.common import Leaf, make_tree, request_flops  # noqa: F401
 
 
 def leaves(c: Dict[str, Any]) -> List[Leaf]:
@@ -112,3 +113,13 @@ def reference(c: Dict[str, Any], params: Dict[str, Any], precision: str = "f32")
     from benchmark.reference.qwen2vl import Qwen2VLReference
 
     return Qwen2VLReference(c, params, precision)
+
+
+def image_flops(c: Dict[str, Any]) -> int:
+    """One image through the vision tower and the patch merger
+    (``counts/model_flops.py``)."""
+    v = c["vision_config"]
+    return model_flops.qwen2vl_vision_flops(v["embed_dim"], v["mlp_ratio"], v["depth"],
+                                            c["image_size"], v["patch_size"],
+                                            v["spatial_merge_size"], v["temporal_patch_size"],
+                                            c["hidden_size"])

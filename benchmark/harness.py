@@ -1,14 +1,33 @@
 """The benchmark's run of one cell, driven by data.
 
-Everything a cell is made of is found by name: the cell in
-``BENCHMARK.json``'s ``workloads``, its configuration in
-``benchmark/configs/<config>.json`` (whose ``family`` names the module under
-``benchmark/families/`` that builds the program for it and its plain
-reference), its traffic mix in ``benchmark/traffic/<traffic>.json`` (whose
-``kind`` names the driver under ``benchmark/kinds/``), its limits in
-``benchmark/limits/<cell>.json`` and each per-layer metric's reader in
-``benchmark/metrics/<metric>.py``. A new cell, configuration, mix or metric
-is a new file.
+Everything a cell is made of is found by name, as a file of its own: the
+cell in ``BENCHMARK.json``'s ``workloads``; its configuration in
+``benchmark/configs/<config>.json``, whose ``family`` names
+``benchmark/families/<family>.py``; its traffic mix in
+``benchmark/traffic/<traffic>.json``, whose ``kind`` names
+``benchmark/kinds/<kind>.py``; its limits in ``benchmark/limits/<cell>.json``;
+each per-layer metric's reader in ``benchmark/metrics/<metric>.py``; and each
+hand-written kernel in ``benchmark/kernels/<kernel>.py``. Python files are
+loaded by path from the benchmark's directory, so a new cell, configuration,
+family, mix, kind, metric or kernel is a new file, and no file already there
+changes. What each must export:
+
+- a family: ``make_params(c, seed, device)``, ``make_backend(c, params)``,
+  ``image_size(c)``, ``map_side(c)``, ``eos_token(c)``, ``image_token(c)``,
+  ``reference(c, params, precision)``, and the model FLOPs it needs,
+  ``image_flops(c)`` (one image through the vision tower and projector) and
+  ``request_flops(c, n_prompt, n_fed, n_head, n_partial=0,
+  partial_layers=0)`` (one sequence through the decoder; see
+  ``counts/model_flops.py::decoder_flops``);
+- a kind: ``DRIVER``, a class built as ``DRIVER(family, c, mix, seed,
+  device)`` with ``batch_units``, ``records``, ``warm_up()``, ``step(i)``
+  (units done), ``spans()``, ``trace_unit(i, start, stop)``,
+  ``counters(records)`` and ``check(n_window, rng, precision, control)``,
+  and if it needs them ``close_window()`` and ``check_info``;
+- a metric: ``LAYER``, ``MOVES`` and ``read(reading)``, which returns None
+  where it finds nothing to read;
+- a kernel: ``ENTRIES``, ``TRACE_NAMES``, ``record`` and ``work``
+  (``kernel_table``).
 
 A run: set-up (import, the kernel library, weights made on the card, the
 cell's own shapes warmed up), then batches back to back until ``seconds``
@@ -31,15 +50,13 @@ import time
 import traceback
 from contextlib import ExitStack
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH_DIR = ROOT / "benchmark"
-
-KINDS = {"twopass": ("benchmark.kinds.twopass", "TwoPass"),
-         "serve_batch": ("benchmark.kinds.serve_batch", "ServeBatch")}
 
 
 def load_json(path: Path) -> Dict[str, Any]:
@@ -60,18 +77,46 @@ def cell_parts(bench: Dict[str, Any], name: str, bench_dir: Path = BENCH_DIR):
             load_json(bench_dir / "traffic" / f"{cell['traffic']}.json"))
 
 
-def make_driver(config: Dict[str, Any], mix: Dict[str, Any], seed: int, device):
-    family = importlib.import_module(f"benchmark.families.{config['family']}")
-    mod, cls = KINDS[mix["kind"]]
-    return getattr(importlib.import_module(mod), cls)(family, config, mix, seed, device)
-
-
-def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name.replace('.', '_')}",
-                                                  bench_dir / "metrics" / f"{name}.py")
+def load_file(path: Path) -> ModuleType:
+    """The Python file at ``path``, loaded by path as a module of its own."""
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_{path.parent.name}_{path.stem.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def make_driver(config: Dict[str, Any], mix: Dict[str, Any], seed: int, device,
+                bench_dir: Path = BENCH_DIR):
+    family = load_file(bench_dir / "families" / f"{config['family']}.py")
+    kind = load_file(bench_dir / "kinds" / f"{mix['kind']}.py")
+    return kind.DRIVER(family, config, mix, seed, device)
+
+
+def metric_reader(name: str, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    return load_file(bench_dir / "metrics" / f"{name}.py")
+
+
+def kernel_table(kernels_dir: Path) -> Dict[str, ModuleType]:
+    """Each hand-written kernel's file under ``kernels_dir``, by its name
+    (``benchmark/kernels/<kernel>.py``). A kernel file exports ``ENTRIES``,
+    the (module, attribute) of each place the program looks the kernel up;
+    ``TRACE_NAMES``, substrings of its device kernels' names in the trace;
+    ``record(args, kwargs, count)``, a call's record from its arguments
+    (``count(mask, dim=None)`` is a device reduction, read after the
+    slice); and ``work(record)``, the call's (bytes, flops) at the bf16
+    peak (``counts/roofline.py``)."""
+    return {p.stem: load_file(p) for p in sorted(kernels_dir.glob("*.py"))}
+
+
+# JAX, and the JAX package the port was made from: no run may load them
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "attwarp_tpu")
+
+
+def forbidden_modules() -> List[str]:
+    """The modules of ``FORBIDDEN_MODULES`` in ``sys.modules``, compared by
+    whole top-level name (``attwarp_tpu_torch`` is not ``attwarp_tpu``)."""
+    return sorted(n for n in list(sys.modules) if n.split(".", 1)[0] in FORBIDDEN_MODULES)
 
 
 class Reading:
@@ -137,7 +182,7 @@ def run_cell(bench: Dict[str, Any], name: str, seed: int, seconds: float, trace:
         torch.cuda.synchronize(device)
     parts["import_and_library_s"] = time.perf_counter() - t_process
     t = time.perf_counter()
-    driver = make_driver(config, mix, seed, device)
+    driver = make_driver(config, mix, seed, device, bench_dir)
     _sync(device)
     parts["weights_and_inputs_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -180,16 +225,16 @@ def run_cell(bench: Dict[str, Any], name: str, seed: int, seconds: float, trace:
         summary, least = None, {}
         if device.type == "cuda":
             from benchmark import trace as tr
-            from benchmark.instrument import KERNELS
 
-            calls = KernelCalls()
+            calls = KernelCalls(kernel_table(bench_dir / "kernels"))
             with calls.installed():
                 summary = tr.trace_and_reduce(
                     lambda start, stop: driver.trace_unit(n_batches, start, stop),
-                    bench_dir / "traces" / name,
-                    {k: v["trace_names"] for k, v in KERNELS.items()},
+                    bench_dir / "traces" / name, calls.trace_names(),
                     on_start=calls.start, on_stop=calls.stop)
             least = calls.least_seconds()
+            with open(bench_dir / "traces" / name / "kernel_least_s.json", "w") as f:
+                json.dump(least, f)
         reading = Reading(spans.times, walls, window_s, counters, summary, least)
         metrics = {}
         for m in bench["per_layer"]:
@@ -214,7 +259,8 @@ def run_cell(bench: Dict[str, Any], name: str, seed: int, seconds: float, trace:
     compared = driver.check(n_batches, rng) if done else {}
     check_s = time.perf_counter() - t
     limits = limits_for(name, bench_dir)
-    correct = (failed == 0 and done > 0 and bool(limits)
+    loaded = forbidden_modules()
+    correct = (failed == 0 and done > 0 and bool(limits) and not loaded
                and all(k in compared and compared[k] <= lim for k, lim in limits.items()))
     out.update({"correct": correct, "attempted": done + failed, "failed": failed})
     out["device"] = {"platform": "gpu" if device.type == "cuda" else device.type,
@@ -230,6 +276,7 @@ def run_cell(bench: Dict[str, Any], name: str, seed: int, seconds: float, trace:
                                            for j in range(0, len(walls), tenth)],
                    "check_s": check_s, **getattr(driver, "check_info", {})}
     out["compared"] = {k: {"value": v, "limit": limits.get(k)} for k, v in compared.items()}
+    out["forbidden_modules"] = loaded
     return out
 
 
@@ -240,6 +287,22 @@ def result_line(out: Dict[str, Any]) -> str:
     """The run's last line of standard output: one JSON object, ``compared``
     (each number the check compared, with its limit) last."""
     return json.dumps({k: out[k] for k in RESULT_KEYS if k in out})
+
+
+def finish(out: Dict[str, Any]) -> int:
+    """The end of a run: the compared numbers on standard error, then the
+    result line on standard output, and 0. Where JAX or the JAX package is
+    loaded once the window has closed, the modules are named on standard
+    error, no result is printed, and the run exits with 4."""
+    print(json.dumps({k: out[k] for k in ("info", "trace") if k in out}), file=sys.stderr)
+    for line in compared_lines(out):
+        print(line, file=sys.stderr)
+    loaded = sorted(set(out.get("forbidden_modules", [])) | set(forbidden_modules()))
+    if loaded:
+        print(f"benchmark: the run loaded {', '.join(loaded)}; no result", file=sys.stderr)
+        return 4
+    print(result_line(out))
+    return 0
 
 
 def compared_lines(out: Dict[str, Any]) -> List[str]:

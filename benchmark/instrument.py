@@ -1,6 +1,7 @@
 """The benchmark's instrumentation of the program, placed from outside: spans
 around calls into a layer, and a record of each hand-written kernel's call
-shapes at its Python entry. Both are installed only in a traced run
+shapes at its Python entry, taken by the kernel's own file under
+``benchmark/kernels/``. Both are installed only in a traced run
 (``--trace 1``) and removed after it; an untraced run measures the program
 as it is.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import time
+from types import ModuleType
 from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
@@ -60,24 +62,12 @@ def patched(target, attr: str, wrapper: Callable) -> Iterator[None]:
 
 # ── kernel call records ───────────────────────────────────────────────
 
-# kernel -> (module, attribute) of each place the program looks it up, and
-# the substrings of its device kernels' names in the trace
-KERNELS = {
-    "k1": {"entries": [("attwarp_tpu_torch.warp.warp", "warp_resample")],
-           "trace_names": ("warp_resample_kernel",)},
-    "k2": {"entries": [("attwarp_tpu_torch.models.llama", "flash_prefill")],
-           "trace_names": ("flash_prefill_kernel",)},
-    "k3": {"entries": [("attwarp_tpu_torch.models.llama", "decode_attn_int8")],
-           "trace_names": ("decode_attn_mha", "decode_attn_gqa", "decode_merge_kernel")},
-}
-
-
 class KernelCalls:
-    """Each hand-written kernel's calls: the shapes, and for K2 and K3 the
-    device counts their work depends on."""
+    """Each hand-written kernel's calls, as its file records them."""
 
-    def __init__(self):
-        self.calls: Dict[str, List[Tuple]] = {k: [] for k in KERNELS}
+    def __init__(self, kernels: Dict[str, ModuleType]):
+        self.kernels = kernels
+        self.calls: Dict[str, List[Tuple]] = {k: [] for k in kernels}
         self._mask_cache: Dict[Tuple[int, int, int], tuple] = {}
         self.active = False   # recording only inside the traced slice
 
@@ -100,22 +90,12 @@ class KernelCalls:
         return hit[1]
 
     def wrapper(self, kernel: str) -> Callable:
+        record = self.kernels[kernel].record
+
         def wrap(fn):
             def recorded(*args, **kwargs):
-                if not self.active:
-                    pass
-                elif kernel == "k1":
-                    images, map_x, map_y = args[:3]
-                    B, H, W, C = images.shape
-                    self.calls["k1"].append((B, H, W, C, map_y.shape[1], map_x.shape[1]))
-                elif kernel == "k2":
-                    q, k, _v, mask = args[:4]
-                    B, T, H, _hd = q.shape
-                    self.calls["k2"].append((B, T, H, k.shape[2], self._count(mask, 1)))
-                else:
-                    q, k_q, _ks, _vq, _vs, mask = args[:6]
-                    _L, B, S, kvH, _hd = k_q.shape
-                    self.calls["k3"].append((B, S, q.shape[1], kvH, self._count(mask)))
+                if self.active:
+                    self.calls[kernel].append(record(args, kwargs, self._count))
                 return fn(*args, **kwargs)
             recorded.__wrapped__ = fn
             return recorded
@@ -124,11 +104,14 @@ class KernelCalls:
     @contextlib.contextmanager
     def installed(self) -> Iterator[None]:
         with contextlib.ExitStack() as stack:
-            for kernel, spec in KERNELS.items():
-                for mod, attr in spec["entries"]:
-                    stack.enter_context(patched(importlib.import_module(mod), attr,
+            for kernel, mod in self.kernels.items():
+                for target, attr in mod.ENTRIES:
+                    stack.enter_context(patched(importlib.import_module(target), attr,
                                                 self.wrapper(kernel)))
             yield
+
+    def trace_names(self) -> Dict[str, Tuple[str, ...]]:
+        return {k: tuple(mod.TRACE_NAMES) for k, mod in self.kernels.items()}
 
     def least_seconds(self) -> Dict[str, float]:
         """Each kernel's summed least time over its recorded calls
@@ -137,15 +120,7 @@ class KernelCalls:
         for kernel, calls in self.calls.items():
             total = 0.0
             for c in calls:
-                if kernel == "k1":
-                    nb, fl = roofline.k1_work(*c)
-                elif kernel == "k2":
-                    B, T, H, kvH, valid = c
-                    pads = [T - int(v) for v in valid.tolist()]
-                    nb, fl = roofline.k2_work(B, T, H, kvH, pads)
-                else:
-                    B, S, H, kvH, n_valid = c
-                    nb, fl = roofline.k3_work(B, S, H, kvH, int(n_valid))
+                nb, fl = self.kernels[kernel].work(c)
                 total += roofline.bound(nb, fl)["bound_ms"] / 1e3
             if calls:
                 out[kernel] = total

@@ -30,7 +30,6 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from benchmark.counts import model_flops
 from benchmark.kinds.twopass import WORDS, _gap
 from benchmark.reference import image as rimg
 
@@ -126,14 +125,14 @@ class ServeBatch:
                 stop()
 
     def counters(self, window_records: List[Dict[str, Any]]) -> Dict[str, float]:
-        d = model_flops.decoder_dims(self.c)
-        per_image = model_flops.vision_flops(self.c)
+        per_image = self.family.image_flops(self.c)
         flops, kept, slot_steps, admit = 0, 0, 0, 0.0
         for rec in window_records:
             reqs, _ = self.pool[rec["pool"]]
             for r, out in zip(reqs, rec["outs"]):
                 g = len(out)
-                flops += model_flops.decoder_flops(d, len(r["input_ids"]), g - 1, g) + per_image
+                flops += self.family.request_flops(self.c, len(r["input_ids"]), g - 1, g)
+                flops += per_image
             kept += sum(sum(took.values()) for _, took in rec["tick_log"])
             slot_steps += rec["decode_steps"] * rec["slots"]
             admit += sum(e - s for s, e, _ in rec["admit_log"])
@@ -177,3 +176,6 @@ class ServeBatch:
         self.check_info = {"requests_checked": len(chosen),
                            "served_tokens_checked": sum(len(s) for s in served)}
         return {"logit_gap": max(gaps)}
+
+
+DRIVER = ServeBatch

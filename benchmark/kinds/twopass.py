@@ -27,7 +27,6 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from benchmark.counts import model_flops
 from benchmark.reference import image as rimg
 
 WORDS = ("what is shown here read label text code on tag in image answer single word or key "
@@ -103,14 +102,13 @@ class TwoPass:
 
     # ── counts for the per-layer metrics ────────────────────────────
     def model_flops(self, rec: Dict[str, Any]) -> int:
-        """What one batch's two passes need (``counts/model_flops.py``)."""
-        d = model_flops.decoder_dims(self.c)
+        """What one batch's two passes need, as the family counts it."""
         K = self.mix["max_new_tokens"]
-        per_image = model_flops.vision_flops(self.c)
+        per_image = self.family.image_flops(self.c)
         total = 0
         for mask, fed, part in ((rec["mask1"], K - 1, 1), (rec["mask2"], K - 1, 0)):
             for n in mask.sum(dim=1).tolist():
-                total += model_flops.decoder_flops(d, int(n), fed, K, n_partial=part,
+                total += self.family.request_flops(self.c, int(n), fed, K, n_partial=part,
                                                    partial_layers=self.c["extract_layer"] + 1)
                 total += per_image
         return total
@@ -232,3 +230,6 @@ def _gap(ref_logits: List[torch.Tensor], chosen: List[torch.Tensor],
         if g.numel():
             worst = max(worst, float(g.max()))
     return worst
+
+
+DRIVER = TwoPass

@@ -1,7 +1,7 @@
 """Kernel K2's share of its roofline in the traced slice, in %: the summed
 least time of its calls (``counts/roofline.py`` at the shapes recorded at
-the kernel's Python entry) over the summed device time of its kernels in
-the trace. Nothing where the slice ran no K2."""
+the kernel's Python entry) over the device time of its kernels in the
+trace, the union of their intervals. Nothing where the slice ran no K2."""
 
 LAYER = "kernels"
 MOVES = "served_tok_per_s"

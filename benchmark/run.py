@@ -8,6 +8,8 @@ last line of standard output is the run's JSON result (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
 ``breakdown``, and last ``compared``: each number the check compared with
 its limit); the compared numbers are also the last lines of standard error.
+Where JAX or the JAX package is loaded once the window has closed, it
+names the modules on standard error, prints no result and exits non-zero.
 With ``--trace 0`` the metrics are the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics.
 """
@@ -17,7 +19,6 @@ import time
 T_PROCESS = time.perf_counter()
 
 import argparse  # noqa: E402
-import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -41,7 +42,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark.harness import compared_lines, find_cell, load_json, result_line, run_cell
+    from benchmark.harness import find_cell, finish, load_json, run_cell
 
     bench = load_json(ROOT / "BENCHMARK.json")
     cell = find_cell(bench, args.workload)
@@ -53,11 +54,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(2)
     out = run_cell(bench, args.workload, args.seed, args.seconds, bool(args.trace),
                    torch.device("cuda", 0), T_PROCESS)
-    print(json.dumps({k: out[k] for k in ("info", "trace") if k in out}), file=sys.stderr)
-    for line in compared_lines(out):
-        print(line, file=sys.stderr)
-    print(result_line(out))
-    return 0
+    return finish(out)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,17 @@
 """The benchmark's yardstick: its copy of the roofline counts equals the
-program's at the shapes of PERF.md's kernel table, and the model-FLOP count
-of a tiny configuration equals a count by hand."""
+program's at the shapes of PERF.md's kernel table, the model-FLOP count of
+a tiny configuration equals a count by hand, and the counts that moved into
+the family and kernel files give what the harness's own functions gave
+before they moved (the literals below)."""
 
 import pytest
+import torch
 
 from attwarp_tpu_torch.kernels import roofline as program
 from benchmark.counts import model_flops, roofline as copy
+from benchmark.harness import BENCH_DIR, cell_parts, kernel_table, make_driver
+from benchmark.instrument import KernelCalls
+from benchmark.tests.rehearse import MINI_CELLS, mini_bench, mini_dir
 
 # PERF.md's kernel table: (kernel, args)
 K1 = [(4, 512, 640, 3, 500, 500), (2, 512, 640, 3, 500, 500), (1, 512, 512, 3, 500, 500),
@@ -77,3 +83,78 @@ def test_vision_flops_of_tiny_towers_by_hand():
     block = 2 * 16 * (4 * 64 + 2 * 8 * 16) + 4 * 256 * 8
     merger = 2 * 4 * (32 * 32 + 32 * 6)
     assert model_flops.qwen2vl_vision_flops(8, 2, 1, 56, 14, 2, 2, 6) == embed + block + merger
+
+
+# ``KernelCalls.least_seconds`` at each shape above, and the ``model_flops``
+# counter of each rehearsal cell's first two batches (seed 2**31 + 7), as the
+# harness gave them while the kernels and the FLOP counts were tables of its
+# own
+LEAST_S = {
+    "k1": [8.281982089552239e-06, 4.140991044776119e-06, 1.8357397014925374e-06,
+           3.402001194029851e-06, 0.00010363002268656717, 1.8357397014925374e-05,
+           0.00024054646447761193],
+    "k2": [2.5041385074626865e-05, 1.2521074626865672e-05, 5.50910471641791e-05,
+           5.008277014925373e-05, 6.260346268656716e-06, 2.83722340950455e-05,
+           1.2521074626865672e-05, 6.260919402985074e-06],
+    "k3": [6.829239402985075e-06, 8.375402985074627e-07, 2.5299830447761193e-05,
+           1.2649915223880596e-05, 1.3154120597014925e-05, 1.2397583283582089e-05,
+           1.6437110447761194e-06, 3.41504e-06, 4.270710447761194e-07],
+}
+MODEL_FLOPS = {"mini.twopass": 5226795008.0, "miniq.twopass": 4285071360.0,
+               "mini.serve": 2801130496.0}
+
+META = "meta"
+
+
+def k1_args(B, H, W, C, H_out, W_out):
+    return (torch.empty(B, H, W, C, device=META), torch.empty(B, W_out, device=META),
+            torch.empty(B, H_out, device=META))
+
+
+def k2_args(B, T, H, kvH, pads):
+    mask = torch.zeros(B, T, dtype=torch.bool)
+    for b, p in enumerate(pads):
+        mask[b, p:] = True
+    qkv = [torch.empty(B, T, h, 128, device=META) for h in (H, kvH, kvH)]
+    return (*qkv, mask)
+
+
+def k3_args(B, S, H, kvH, n_valid):
+    mask = torch.zeros(B * S, dtype=torch.bool)
+    mask[:n_valid] = True
+    cache = torch.empty(2, B, S, kvH, 128, dtype=torch.int8, device=META)
+    return (torch.empty(B, H, 128, device=META), cache, None, cache, None, mask.view(B, S))
+
+
+ARGS = {"k1": (K1, k1_args), "k2": (K2, k2_args), "k3": (K3, k3_args)}
+
+
+@pytest.mark.parametrize("kernel,i", [(k, i) for k, (shapes, _) in ARGS.items()
+                                      for i in range(len(shapes))])
+def test_least_seconds_through_the_kernel_files_is_the_harness_tables(kernel, i):
+    """A call recorded through the kernel's file (its argument shapes at
+    the Python entry, the mask reduced) gives the least time the harness's
+    table gave."""
+    shapes, make = ARGS[kernel]
+    calls = KernelCalls(kernel_table(BENCH_DIR / "kernels"))
+    calls.start()
+    calls.wrapper(kernel)(lambda *a, **k: None)(*make(*shapes[i]))
+    assert calls.least_seconds() == {kernel: LEAST_S[kernel][i]}
+
+
+@pytest.fixture(scope="module")
+def mini(tmp_path_factory):
+    return mini_dir(tmp_path_factory.mktemp("counts"))
+
+
+@pytest.mark.parametrize("cell", sorted(MINI_CELLS))
+def test_model_flops_counter_of_each_rehearsal_cell_is_the_harness_tables(cell, mini):
+    """The family's ``image_flops`` and ``request_flops`` give the counter
+    the harness's own ``vision_flops`` and ``decoder_dims`` gave, bit for
+    bit."""
+    _cell, c, m = cell_parts(mini_bench(), cell, mini)
+    torch.manual_seed(0)
+    driver = make_driver(c, m, 2**31 + 7, torch.device("cpu"), mini)
+    driver.step(0)
+    driver.step(1)
+    assert driver.counters(driver.records)["model_flops"] == MODEL_FLOPS[cell]

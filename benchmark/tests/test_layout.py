@@ -1,12 +1,14 @@
 """BENCHMARK.json against the rules of its format, and the benchmark's
-independence: every cell's parts found by name, and no file under
-``benchmark/`` importing JAX or the JAX package."""
+independence: every cell's parts found by name as files, every kernel file
+exporting what the harness reads, no table of families, kinds or kernels
+in the harness's code, and no file under ``benchmark/`` importing JAX or
+the JAX package."""
 
 import ast
 import json
 import re
 
-from benchmark.harness import BENCH_DIR, KINDS, ROOT, limits_for
+from benchmark.harness import BENCH_DIR, ROOT, kernel_table, limits_for
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -45,7 +47,8 @@ def test_every_cell_finds_its_parts_and_reports_setup_a_rate_and_a_layer():
         assert w["chips"] == 1
         cfg = json.loads((BENCH_DIR / "configs" / f"{w['config']}.json").read_text())
         mix = json.loads((BENCH_DIR / "traffic" / f"{w['traffic']}.json").read_text())
-        assert cfg["name"] == w["config"] and mix["kind"] in KINDS
+        assert cfg["name"] == w["config"]
+        assert (BENCH_DIR / "kinds" / f"{mix['kind']}.py").is_file()
         assert (BENCH_DIR / "families" / f"{cfg['family']}.py").is_file()
         assert limits_for(w["name"]), w["name"]
         e2e = [m for m in b["end_to_end"] if w["name"] in m.get("workloads", [w["name"]])]
@@ -55,6 +58,26 @@ def test_every_cell_finds_its_parts_and_reports_setup_a_rate_and_a_layer():
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
         assert c["file"].startswith("benchmark/")
+
+
+def test_every_kernel_file_exports_entries_trace_names_record_and_work():
+    table = kernel_table(BENCH_DIR / "kernels")
+    assert {"k1", "k2", "k3"} <= set(table)
+    for name, mod in table.items():
+        assert mod.ENTRIES and all(len(e) == 2 for e in mod.ENTRIES), name
+        assert mod.TRACE_NAMES and all(isinstance(n, str) for n in mod.TRACE_NAMES), name
+        assert callable(mod.record) and callable(mod.work), name
+
+
+def test_no_table_of_families_kinds_or_kernels_in_the_harness_code():
+    """A family, kind or kernel joins as a file: no code outside the tests
+    branches on one by name."""
+    banned = ('family"] ==', "family'] ==", 'kernel == "k', "KINDS")
+    for f in BENCH_DIR.rglob("*.py"):
+        if "tests" in f.relative_to(BENCH_DIR).parts:
+            continue
+        text = f.read_text()
+        assert not [b for b in banned if b in text], f
 
 
 def test_nothing_under_benchmark_imports_jax_or_the_jax_package():

@@ -1,14 +1,14 @@
-"""The metric arithmetic: the trace's idle share and kernel sums, the
-engine's slot occupancy and admission share, rates over the whole window
-with a batch that straddles its end, and each per-layer reader against the
-BENCHMARK.json entry that names it."""
+"""The metric arithmetic: the trace's idle share and each kernel's time
+(the union of its intervals), the engine's slot occupancy and admission
+share, rates over the whole window with a batch that straddles its end, and
+each per-layer reader against the BENCHMARK.json entry that names it."""
 
 import json
 
 import pytest
 import torch
 
-from benchmark.harness import BENCH_DIR, ROOT, Reading, metric_reader, window
+from benchmark.harness import BENCH_DIR, ROOT, Reading, load_file, metric_reader, window
 from benchmark.kinds.serve_batch import ServeBatch
 from benchmark.trace import SLICE, merge, reduce_trace
 
@@ -55,6 +55,62 @@ def test_reduce_trace_idle_share_kernel_sums_and_gaps():
     assert idle == pytest.approx(55.0)
 
 
+def test_kernel_time_is_the_union_of_its_intervals_inside_the_slice():
+    """A split kernel and the merge kernel it launches as a programmatic
+    dependent overlap: their union counts, not the sum of their durations.
+    Serial calls of one kernel read their sum; a call that runs past the
+    slice counts only inside it."""
+    ev = split_merge_trace()
+    s = reduce_trace(ev, {"k1": ("warp_resample_kernel",), "k2": ("flash_prefill_kernel",),
+                          "k3": ("decode_attn_gqa", "decode_merge_kernel")})
+    assert s["kernel_s"] == pytest.approx({"k3": (12 + 9) * 1e-6, "k2": (50 + 20) * 1e-6})
+    # the sum of K3's durations would read 35 us; of K2's inside, as before
+    assert s["busy_s"] == pytest.approx((12 + 9 + 50 + 20) * 1e-6)
+    r = Reading({}, [], 1.0, {}, trace=s, kernel_least_s={"k3": 10.5e-6, "k2": 35e-6})
+    assert metric_reader("k3_roofline.twopass").read(r) == pytest.approx(50.0)
+    assert metric_reader("k2_roofline.serve").read(r) == pytest.approx(50.0)
+
+
+def split_merge_trace():
+    """A 1000 us slice from 100 us with K3's split and merge kernels
+    overlapping twice, K2 called twice, and K1 only before the slice."""
+    return [_ev(SLICE, "user_annotation", 100, 1000),
+            # K3: split [100, 110), merge starts inside it and ends at 112
+            _ev("decode_attn_gqa<128>", "kernel", 100, 10),
+            _ev("decode_merge_kernel", "kernel", 101, 11),
+            # and again at [200, 208) with its merge at [203, 209)
+            _ev("decode_attn_gqa<128>", "kernel", 200, 8),
+            _ev("decode_merge_kernel", "kernel", 203, 6),
+            # K2: two serial calls, the second running 20 us past the slice
+            _ev("flash_prefill_kernel", "kernel", 300, 50),
+            _ev("flash_prefill_kernel", "kernel", 1080, 40),
+            # K1 before the slice only
+            _ev("warp_resample_kernel", "kernel", 10, 30)]
+
+
+def test_the_offline_reducer_reads_each_kernel_by_sum_and_by_union(tmp_path, capsys):
+    """``kernel_times.py`` on a saved trace: K3's split and merge by the sum
+    of their durations (35 us) and by their union (21 us); K2's sum keeps
+    the 20 us past the slice, its union does not; with the run's least
+    times, the roofline share both ways."""
+    from benchmark import kernel_times
+
+    ev = split_merge_trace()
+    names = {"k1": ("warp_resample_kernel",), "k2": ("flash_prefill_kernel",),
+             "k3": ("decode_attn_gqa", "decode_merge_kernel")}
+    t = kernel_times.kernel_times(ev, names)
+    assert t["k3"] == pytest.approx((35e-6, 21e-6))
+    assert t["k2"] == pytest.approx((90e-6, 70e-6))
+    assert t["k1"] == pytest.approx((30e-6, 0.0))
+    assert t["k3"][1] == pytest.approx(reduce_trace(ev, names)["kernel_s"]["k3"])
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": ev}))
+    (tmp_path / "kernel_least_s.json").write_text(json.dumps({"k3": 10.5e-6}))
+    assert kernel_times.main([str(tmp_path)]) == 0
+    k3 = next(line for line in capsys.readouterr().out.splitlines() if line.startswith("k3:"))
+    share = [float(x) for x in k3.split("roofline % sum ")[1].split(" union ")]
+    assert share == pytest.approx([30.0, 50.0])
+
+
 def test_kernel_roofline_reader_is_least_over_device_time_and_silent_without_kernel():
     s = reduce_trace(synthetic_trace(), {"k2": ("flash_prefill_kernel",)})
     r = Reading({}, [], 1.0, {}, trace=s, kernel_least_s={"k2": 10e-6})
@@ -81,6 +137,7 @@ def test_slot_occupancy_and_admission_share_from_hand_made_logs():
     d = ServeBatch.__new__(ServeBatch)
     log = _Log()
     d.pool, d.c = log.pool, log.c
+    d.family = load_file(BENCH_DIR / "families" / "llava.py")
     # 2 slots, 3 ticks of 4 steps = 12 decode steps x 2 slots = 24 slot-steps;
     # 4 + 4, 4 + 2, 3 tokens kept = 17; admissions of 0.5 s and 0.25 s
     rec = {"pool": 0, "outs": [[5] * 9, [6] * 10], "decode_steps": 12, "slots": 2,

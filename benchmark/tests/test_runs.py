@@ -4,19 +4,21 @@ stands for: a sound run comes out correct and prints its result line;
 the control (the reference in the precision below the configuration's, in
 the program's place) and each fault a cell can have, planted under the
 timed path, come out not correct; without a card the benchmark prints no
-result and exits non-zero."""
+result and exits non-zero, as does a run that has loaded JAX or the JAX
+package."""
 
 import contextlib
 import json
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import (ROOT, cell_parts, compared_lines, limits_for, make_driver,
-                               result_line, window)
+from benchmark.harness import (ROOT, cell_parts, compared_lines, finish, forbidden_modules,
+                               limits_for, make_driver, result_line, window)
 from benchmark.tests.rehearse import MINI_CELLS, mini_bench, mini_dir, rehearse
 
 
@@ -157,3 +159,27 @@ def test_without_a_card_the_benchmark_prints_nothing_and_fails():
                         "llava15-7b.twopass-b8", "--seed", str(2**31 + 5), "--seconds", "1",
                         "--trace", "0"], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout == ""
+
+
+def test_a_sound_run_prints_its_result_line_and_exits_0(tmp, capsys):
+    out = rehearse("mini.twopass", tmp)
+    assert out["correct"] and out["forbidden_modules"] == []
+    assert "attwarp_tpu_torch" in sys.modules and forbidden_modules() == []
+    assert finish(out) == 0
+    cap = capsys.readouterr()
+    assert cap.out.splitlines()[-1] == result_line(out)
+    assert cap.err.splitlines()[-len(out["compared"]):] == compared_lines(out)
+
+
+@pytest.mark.parametrize("module", ["jax", "attwarp_tpu.warp"])
+def test_a_run_that_loads_jax_or_the_jax_package_prints_no_result(module, tmp, monkeypatch,
+                                                                  capsys):
+    """A module of JAX or of the JAX package in ``sys.modules`` once the
+    window has closed: the run is not correct, names it on standard error,
+    prints nothing on standard output and exits non-zero."""
+    monkeypatch.setitem(sys.modules, module, types.ModuleType(module))
+    out = rehearse("mini.twopass", tmp)
+    assert out["correct"] is False and out["forbidden_modules"] == [module]
+    assert finish(out) != 0
+    cap = capsys.readouterr()
+    assert cap.out == "" and module in cap.err.splitlines()[-1]

@@ -8,7 +8,10 @@ overwrites the last. ``reduce_trace`` reads it back: the device's busy time
 (the union of kernel, copy and set intervals, so overlapping kernels count
 once) inside the slice, the summed time of each device operation, the
 longest idle gaps named by the host operation running at their midpoint,
-and the summed device time of the hand-written kernels.
+and the device time of each hand-written kernel: the union of its device
+kernels' intervals inside the slice, so that a kernel launched as a
+programmatic dependent, which starts inside the one it depends on, does not
+count their overlap twice.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ def reduce_trace(events: List[dict], kernel_names: Dict[str, Sequence[str]],
     slice annotation's length), ``busy_s``, ``device_ops`` and
     ``idle_gaps`` (each ``[[name, seconds], ...]``, at most ``top``) and
     ``kernel_s`` (device seconds of each kernel of ``kernel_names``, by
-    name substring)."""
+    name substring: the union of its intervals inside the slice)."""
     sl = [e for e in events if e.get("name") == SLICE and e.get("ph") == "X"
           and e.get("cat") == "user_annotation"]
     if not sl:
@@ -92,8 +95,8 @@ def reduce_trace(events: List[dict], kernel_names: Dict[str, Sequence[str]],
     lo = float(sl[0]["ts"])
     hi = lo + float(sl[0]["dur"])
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
-    spans = clip([(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev], lo, hi)
-    busy = merge(spans)
+    ivals = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
+    busy = merge(clip(ivals, lo, hi))
     busy_us = sum(e - s for s, e in busy)
     by_name: Dict[str, float] = {}
     for e in dev:
@@ -116,7 +119,9 @@ def reduce_trace(events: List[dict], kernel_names: Dict[str, Sequence[str]],
         named.append([name, (b - a) / 1e6])
     kernel_s = {}
     for k, subs in kernel_names.items():
-        t = sum(float(e["dur"]) for e in dev if any(s in e["name"] for s in subs))
+        union = merge(clip([iv for e, iv in zip(dev, ivals) if any(s in e["name"] for s in subs)],
+                           lo, hi))
+        t = sum(e - s for s, e in union)
         if t > 0:
             kernel_s[k] = t / 1e6
     return {"window_s": (hi - lo) / 1e6, "busy_s": busy_us / 1e6,
