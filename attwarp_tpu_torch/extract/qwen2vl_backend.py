@@ -70,17 +70,20 @@ class Qwen2VLBackend:
         self.kv_quant = kv_quant
         # flash prefill (the '+flash' suffix): the same K2 as LLaVA's
         self.use_flash = use_flash
-        vcfg = model.cfg.vision
-        unit = vcfg.patch_size * vcfg.spatial_merge_size
-        if image_size % unit:
-            raise ValueError(f"image_size {image_size} is not a multiple of "
-                             f"patch * merge = {unit}")
+        self._check_image_size(image_size)
         n_layers = model.cfg.text.num_hidden_layers
         for layer in extract_layers_tuple(extract_layer):
             if not 0 <= layer < n_layers:
                 raise ValueError(f"extract_layer {layer} out of range for "
                                  f"{n_layers}-layer model")
         self.image_size = image_size
+
+    def _check_image_size(self, image_size: int) -> None:
+        vcfg = self.model.cfg.vision
+        unit = vcfg.patch_size * vcfg.spatial_merge_size
+        if image_size % unit:
+            raise ValueError(f"image_size {image_size} is not a multiple of "
+                             f"patch * merge = {unit}")
 
     # ── checkpoints ────────────────────────────────────────────────────
     def save(self, path) -> None:
@@ -169,7 +172,7 @@ class Qwen2VLBackend:
         """One host image -> CLIP-normalized (S, S, 3) float32 pixels on the
         host at ``image_size``, as JAX's ``_preprocess`` (the engine
         patchifies them)."""
-        return clip_pixels([image], self.image_size, self.device)[0].cpu().numpy()
+        return self._pixels([image])[0].cpu().numpy()
 
     @property
     def num_patches_side(self) -> int:
@@ -210,8 +213,17 @@ class Qwen2VLBackend:
         device; images -> patches (B, N, C*T*P*P) and their grid."""
         with profiling.span("backend.prepare"):
             ids, mask = self._prompt_ids(questions)
-            pix = clip_pixels(images, self.image_size, self.device)
-            return (ids, mask, *patchify_batch(pix, self.model.cfg.vision))
+            return (ids, mask, *self._patches(self._pixels(images)))
+
+    def _pixels(self, images) -> torch.Tensor:
+        """Images -> the tower's normalized (B, S, S, 3) f32 pixels at
+        ``image_size`` on the model's device."""
+        return clip_pixels(images, self.image_size, self.device)
+
+    def _patches(self, pix: torch.Tensor):
+        """Normalized pixels (B, S, S, 3) -> what the model's tower takes
+        and the image grid (t, h, w): HF-patchified rows (B, N, C*T*P*P)."""
+        return patchify_batch(pix, self.model.cfg.vision)
 
     @profiling.span("backend.detokenize")   # the generated ids' fetch and decode
     def _decode(self, gen: torch.Tensor) -> List[str]:
@@ -246,7 +258,7 @@ class Qwen2VLBackend:
         mask = torch.as_tensor(attention_mask, device=dev).to(torch.bool)
         pix = torch.as_tensor(image, device=dev).to(torch.float32)
         shared = pix.ndim == 3
-        patches, grid = patchify_batch(pix[None] if shared else pix, self.model.cfg.vision)
+        patches, grid = self._patches(pix[None] if shared else pix)
         return self._generate(ids, mask, patches[0] if shared else patches, grid,
                               self.extract_layer, max_new_tokens)
 
@@ -255,7 +267,7 @@ class Qwen2VLBackend:
         with profiling.span("backend.extract"):
             with profiling.span("backend.prepare"):
                 ids, mask = self._prompt_ids(questions)
-                pixels = clip_pixels(images, self.image_size, self.device)
+                pixels = self._pixels(images)
             gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
             return maps, self._decode(gen)
 

@@ -171,15 +171,16 @@ def resize_images_batch(images: Sequence[np.ndarray], size: int,
     return torch.cat(pieces, dim=0)[inv]
 
 
-def clip_pixels(images, size: int, device: torch.device) -> torch.Tensor:
-    """Images -> CLIP-normalized (B, size, size, 3) f32 on ``device``: a
-    (B, size, size, C) tensor is taken as it is, anything else is resized
-    on the device first."""
+def clip_pixels(images, size: int, device: torch.device, mean=CLIP_MEAN,
+                std=CLIP_STD) -> torch.Tensor:
+    """Images -> CLIP-normalized (B, size, size, 3) f32 on ``device`` (or
+    by another tower's ``mean`` and ``std``): a (B, size, size, C) tensor
+    is taken as it is, anything else is resized on the device first."""
     if not (isinstance(images, torch.Tensor) and images.ndim == 4
             and tuple(images.shape[1:3]) == (size, size)):
         images = resize_images_batch(list(images), size, device)
     x = images.to(device)
     x = x.to(torch.float32) / 255.0 if not x.is_floating_point() else x.to(torch.float32)
-    mean = torch.as_tensor(CLIP_MEAN, device=x.device)
-    std = torch.as_tensor(CLIP_STD, device=x.device)
+    mean = torch.as_tensor(mean, device=x.device)
+    std = torch.as_tensor(std, device=x.device)
     return (x - mean) / std

@@ -3,7 +3,12 @@
 
 HF ``CLIPVisionModel`` as LLaVA-1.5 uses it (openai/clip-vit-large-patch14-
 336): patch embedding, class token, learned positions, pre-layernorm, N
-blocks with QuickGELU, hidden states tapped at ``feature_layer``. The patch
+blocks with QuickGELU, hidden states tapped at ``feature_layer``. Under a
+``SiglipVisionConfig`` the same blocks are HF ``SiglipVisionModel``'s
+encoder (as Uni-MoE-2.0-Omni uses SigLIP-so400m-patch14-384): a patch
+embedding with a bias (``patch_bias``), learned positions over the patches
+alone, no class token and no pre-layernorm; its post-layernorm and pooling
+head are not on the tapped path and not held. The patch
 embedding stays an unfold plus a matmul with the JAX ``patch_weight``
 layout ``(hidden, P*P*3)``: no convolution, so cuDNN's TF32 default never
 applies. Parameters are the JAX tree's names, as tensors; a tensor-parallel
@@ -42,6 +47,20 @@ class ClipVisionConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+@dataclass(frozen=True)
+class SiglipVisionConfig(ClipVisionConfig):
+    """A SigLIP tower (the defaults: SigLIP-so400m-patch14-384's)."""
+
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    image_size: int = 384
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+    hidden_act: str = "gelu_pytorch_tanh"
 
 
 # CLIP image normalization constants (OPENAI_CLIP_MEAN/STD).
@@ -99,19 +118,27 @@ def clip_vision_features(
 ) -> torch.Tensor:
     """Hidden states at ``feature_layer`` (HF ``output_hidden_states``
     indexing: 0 is the embedding output, i the output of block i), computed
-    in the parameters' dtype. Returns (B, num_patches[, +1], hidden)."""
+    in the parameters' dtype. Returns (B, num_patches[, +1], hidden): the
+    class token's row is kept unless ``drop_cls`` (a SigLIP tower has
+    none)."""
     B = pixel_values.shape[0]
     P = cfg.patch_size
     n = cfg.image_size // P
     x = pixel_values.to(params["patch_weight"].dtype)
-    x = x.reshape(B, n, P, n, P, 3).permute(0, 1, 3, 2, 4, 5)
+    # a side that is no multiple of the patch (SigLIP's 384 px over 14 px
+    # patches) loses its last pixels, as a stride-P convolution does
+    x = x[:, :n * P, :n * P].reshape(B, n, P, n, P, 3).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(B, n * n, P * P * 3)
     patches = all_gather(x @ params["patch_weight"].T,   # (B, n*n, hidden); no bias
                          split_group(params, "patch"), -1)
-    cls = params["class_embedding"].expand(B, 1, cfg.hidden_size)
-    h = torch.cat([cls, patches], dim=1) + params["position_embedding"][None]
-    h = _ln(h, params["pre_layrnorm"], cfg.layer_norm_eps)
+    siglip = isinstance(cfg, SiglipVisionConfig)
+    if siglip:
+        h = patches + params["patch_bias"] + params["position_embedding"][None]
+    else:
+        cls = params["class_embedding"].expand(B, 1, cfg.hidden_size)
+        h = torch.cat([cls, patches], dim=1) + params["position_embedding"][None]
+        h = _ln(h, params["pre_layrnorm"], cfg.layer_norm_eps)
     stop = feature_layer % (cfg.num_hidden_layers + 1)
     for i in range(stop):
         h = _block(params["layers"][i], cfg, h)
-    return h[:, 1:] if drop_cls else h
+    return h[:, 1:] if drop_cls and not siglip else h

@@ -1,7 +1,9 @@
 """LLaMA decoder (counterpart of ``attwarp_tpu/models/llama.py``).
 
 HF ``LlamaModel`` architecture: RMSNorm, rotary embeddings with
-left-padding positions, grouped-query attention, SwiGLU MLP. Parameters are
+left-padding positions, grouped-query attention, SwiGLU MLP (or, in a layer
+whose tree holds ``"moe"``, the routed experts of ``models/moe.py``, in
+prefill and in the decode step alike). Parameters are
 the JAX tree's names, as tensors: ``embed_tokens``, ``norm``, ``lm_head`` and
 ``layers[i]`` with ``input_layernorm``, ``post_attention_layernorm`` and the
 seven projection matrices ``(out, in)``.
@@ -58,7 +60,7 @@ import torch.nn.functional as F
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
-from attwarp_tpu_torch.models import decode_graph
+from attwarp_tpu_torch.models import decode_graph, moe
 from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv, row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, all_reduce, split_group
 from attwarp_tpu_torch.utils import profiling
@@ -278,8 +280,14 @@ def _attn_quantcache(q, k_q, k_s, v_q, v_s, mask, cfg: LlamaConfig,
             probs[:, :, -1, :] if want_probs else None)
 
 
-def _mlp(lp: Dict[str, Any], cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp(lp: Dict[str, Any], cfg: LlamaConfig, x: torch.Tensor,
+         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FFN residual of rows x: the dense SwiGLU, or a layer's routed
+    experts (``models/moe.py``; ``valid`` marks a prefill's token rows, and
+    without it the step's static form runs)."""
     h2 = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    if "moe" in lp:
+        return moe.moe_ffn(lp["moe"], cfg.moe, h2, valid)
     return row_linear(
         F.silu(apply_linear(h2, lp["gate_proj"])) * apply_linear(h2, lp["up_proj"]),
         lp["down_proj"], split_group(lp, "mlp"),
@@ -293,12 +301,13 @@ def layer_project(lp: Dict[str, Any], cfg: LlamaConfig, x):
     return tuple(apply_linear(h, lp[w]) for w in ("q_proj", "k_proj", "v_proj"))
 
 
-def layer_residuals(lp: Dict[str, Any], cfg: LlamaConfig, x, attn):
+def layer_residuals(lp: Dict[str, Any], cfg: LlamaConfig, x, attn, valid=None):
     """A decoder layer after its attention: the o_proj and MLP residuals
     (on a tensor-parallel rank each a row-parallel linear, summed over the
-    ``model`` axis)."""
+    ``model`` axis). ``valid`` (a prefill's attention mask) reaches an
+    expert layer's routing."""
     x = x + row_linear(attn, lp["o_proj"], split_group(lp, "attn"))
-    return x + _mlp(lp, cfg, x)
+    return x + _mlp(lp, cfg, x, valid)
 
 
 def final_logits(params: Dict[str, Any], cfg: LlamaConfig, x) -> torch.Tensor:
@@ -425,7 +434,7 @@ def decoder_prefill(params, cfg, inputs_embeds, attention_mask, cos, sin,
             else:
                 cache.k[i, :, :T] = k
                 cache.v[i, :, :T] = v
-            x = layer_residuals(lp, cfg, x, attn)
+            x = layer_residuals(lp, cfg, x, attn, attention_mask)
         return final_logits(params, cfg, x[:, -1]), cache, _stack_rows(rows, extract_layer, params)
 
 

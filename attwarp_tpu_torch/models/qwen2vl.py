@@ -359,6 +359,11 @@ class Qwen2VLModel:
     def device(self) -> torch.device:
         return self.params["text"]["embed_tokens"].device
 
+    @property
+    def merge(self) -> int:
+        """Patches merged into one image token, a side (M-RoPE's grid)."""
+        return self.cfg.vision.spatial_merge_size
+
     def image_features(self, patches: torch.Tensor,
                        grid_thw: Tuple[int, int, int]) -> torch.Tensor:
         """The vision tower over ``patches``: (B, N, C*T*P*P) per-sample
@@ -385,8 +390,7 @@ class Qwen2VLModel:
         embeds = embed_and_splice(self.params, self.cfg, input_ids,
                                   self.image_features(patches, grid_thw))
         pos, _ = get_mrope_positions(input_ids.cpu().numpy(), attention_mask.cpu().numpy(),
-                                     grid_thw, self.cfg.image_token_id,
-                                     self.cfg.vision.spatial_merge_size)
+                                     grid_thw, self.cfg.image_token_id, self.merge)
         cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), self.cfg.text)
         logits, _, row = qwen2vl_prefill(self.params["text"], self.cfg.text, embeds,
                                          attention_mask, cos, sin, max_seq=input_ids.shape[1],
@@ -423,7 +427,7 @@ class Qwen2VLModel:
         max_seq = T + max_new_tokens
         if kv_quant:
             max_seq = -(-max_seq // 64) * 64
-        M = cfg.vision.spatial_merge_size
+        M = self.merge
         side_h, side_w = grid_thw[1] // M, grid_thw[2] // M
         n_img = side_h * side_w
         with profiling.span("mrope_positions"):   # the prompt's fetch to the host

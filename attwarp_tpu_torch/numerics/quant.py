@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from attwarp_tpu_torch.models.moe import refuse_experts
 from attwarp_tpu_torch.parallel.comm import Group, all_gather, all_reduce, split_group
 
 DECODER_LINEAR_KEYS: Tuple[str, ...] = (
@@ -171,7 +172,9 @@ def quantize_decoder_params(params: Dict[str, Any],
     in place and one layer at a time on the weights' device, so that each
     layer's dense weights are freed as its int8 form is made and no second
     tree is ever held (JAX's returns a new tree). Embeddings, LM head and
-    norms pass through. Returns ``params``."""
+    norms pass through. Returns ``params``. A tree with routed experts is
+    refused (no expert layer has an int8 form)."""
+    refuse_experts(params, "quantize_decoder_params (+int8)")
     layers = params["layers"]
     for i, lp in enumerate(layers):
         layers[i] = {k: (quantize_linear(v) if k in keys else v) for k, v in lp.items()}

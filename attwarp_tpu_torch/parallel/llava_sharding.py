@@ -38,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from attwarp_tpu_torch.models.moe import refuse_experts
 from attwarp_tpu_torch.numerics.quant import is_quantized
 from attwarp_tpu_torch.parallel.comm import Group, ModelShard
 from attwarp_tpu_torch.parallel.mesh import Mesh
@@ -172,7 +173,9 @@ def _split(width: int, g: Group) -> Optional[Tuple[int, int]]:
 
 def _shard_decoder(tree: Dict[str, Any], H: int, kvH: int, hd: int, inter: int,
                    vocab: int, g: Group) -> Dict[str, Any]:
-    """A LLaMA/Qwen2 decoder tree -> this rank's."""
+    """A LLaMA/Qwen2 decoder tree -> this rank's (a dense one: a tree with
+    routed experts is refused)."""
+    refuse_experts(tree, "tensor-parallel sharding")
     heads = _head_plan(H, kvH, g)
     ffn = _split(inter, g)
     voc = _split(vocab, g)

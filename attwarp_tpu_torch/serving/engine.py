@@ -61,6 +61,7 @@ from attwarp_tpu_torch.models.llama import (
     release_kv_cache,
     rope_cos_sin,
 )
+from attwarp_tpu_torch.models.moe import refuse_experts
 from attwarp_tpu_torch.utils import profiling
 
 
@@ -141,6 +142,10 @@ class ServeEngine:
         self.family = ("qwen2vl" if hasattr(model.cfg, "vision_start_token_id")
                        else "llava")
         self.text_params = model.params["text" if self.family == "qwen2vl" else "llama"]
+        # an expert model's prompts, positions and the chunked engine's
+        # fused step (one FFN call over decode rows and a padded chunk) are
+        # not built for it
+        refuse_experts(self.text_params, "ServeEngine / ChunkedPrefillEngine")
         self.use_flash = use_flash
         # the model admission prefills run on (``DisaggServeEngine`` puts
         # another copy of the weights on another device here)

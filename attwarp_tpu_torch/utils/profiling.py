@@ -24,6 +24,12 @@ With neither on, a span reads one flag and returns a shared no-op: no
 ``record_function``, no clock, no allocation. No span or counter ever
 synchronises the device or reads a device value.
 
+A count kept on the device (``models/moe.py::MoETally``, updated inside
+CUDA graphs where a host counter could not be) joins the recorder through
+``watch``: a recorder copies each watched tally on the device when it
+starts, and reads what each gained once, on the host, when ``tracing``
+closes.
+
 ``device_trace`` captures a ``torch.profiler`` trace of its body, the
 counterpart of JAX's ``jax.profiler`` trace: host ops always, the device's
 kernels where a card is present, written as a Chrome trace
@@ -42,6 +48,7 @@ import functools
 import itertools
 import json
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -55,6 +62,8 @@ _profiler_on = torch._C._autograd._profiler_enabled
 INHERITED = ("batch", "rid")
 
 _recorder: Optional["Recorder"] = None
+# device tallies (``snapshot()``, ``counters(since)``), kept while alive
+_watched: "weakref.WeakSet" = weakref.WeakSet()
 _current: contextvars.ContextVar = contextvars.ContextVar("attwarp_span", default=None)
 _ids = itertools.count(1)
 
@@ -161,6 +170,13 @@ def count(name: str, n: int = 1) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def watch(tally) -> None:
+    """Let every later recorder read ``tally``, a count kept on the device
+    (``snapshot()`` copies it on the device, ``counters(since)`` reads what
+    it gained since a copy as named counts), while the tally lives."""
+    _watched.add(tally)
+
+
 def recording() -> bool:
     """Whether ``tracing`` is on (for a count that costs host work)."""
     return _recorder is not None
@@ -175,15 +191,20 @@ def _k1_plan_misses() -> int:
 class Recorder:
     """What ``tracing`` keeps: ``spans`` (dicts, in the order they ended)
     and ``counters``; ``k1.plan_misses`` is read from K1's plan cache at
-    the start and the end."""
+    the start and the end, and each watched device tally's gain at the
+    end."""
 
     def __init__(self):
         self.spans: List[dict] = []
         self.counters: Dict[str, int] = {}
         self._misses0 = _k1_plan_misses()
+        self._tallies = [(t, t.snapshot()) for t in list(_watched)]
 
     def close(self) -> None:
         self.counters["k1.plan_misses"] = _k1_plan_misses() - self._misses0
+        for tally, since in self._tallies:
+            for name, n in tally.counters(since).items():
+                self.counters[name] = self.counters.get(name, 0) + n
 
     def seconds(self) -> Dict[str, float]:
         """Summed seconds by span name."""
