@@ -8,6 +8,9 @@
 - ``decode_attn``: K3, one-token attention over the int8 KV cache
   (``csrc/decode_attn_int8.cu``; replaces
   ``attwarp_tpu/ops/pallas_decode_attn.py``).
+- ``attn_softmax``: K4, the scaled row softmax between a vision tower's two
+  attention products, in place (``csrc/attn_softmax.cu``; replaces no TPU
+  kernel: the JAX towers' softmax is plain einsum code).
 
 Each wrapper runs its kernel's plain PyTorch version on CPU tensors and
 launches the kernel (or raises) on CUDA tensors; ``<wrapper>.launches``

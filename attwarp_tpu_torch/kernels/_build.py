@@ -49,6 +49,8 @@ _SIGNATURES = {
     + [ctypes.c_float, _VOID],
     # q, k, v, mask, out, B, T, H, kvH, hd, sm_scale, stream
     "attwarp_flash_prefill": [_VOID] * 5 + [_INT] * 5 + [ctypes.c_float, _VOID],
+    # x, rows, L, elem_bytes, scale, stream
+    "attwarp_attn_softmax": [_VOID, ctypes.c_longlong, _INT, _INT, ctypes.c_float, _VOID],
 }
 
 

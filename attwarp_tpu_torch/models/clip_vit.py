@@ -25,6 +25,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_
 from attwarp_tpu_torch.numerics.quant import row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, split_group
 
@@ -100,8 +101,8 @@ def _block(lp: Dict[str, Any], cfg: ClipVisionConfig, x: torch.Tensor) -> torch.
     q = _lin(h, lp["q_proj"]).reshape(B, T, -1, hd)
     k = _lin(h, lp["k_proj"]).reshape(B, T, -1, hd)
     v = _lin(h, lp["v_proj"]).reshape(B, T, -1, hd)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
-    probs = torch.softmax(logits * (1.0 / math.sqrt(hd)), dim=-1).to(x.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    probs = scaled_softmax_(logits, 1.0 / math.sqrt(hd))   # K4, over the logits
     attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, -1)
     x = x + _row(attn, lp["out_proj"], split_group(lp, "attn"))
     h2 = _ln(x, lp["layer_norm2"], cfg.layer_norm_eps)

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_layer_carry
+from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_
 from attwarp_tpu_torch.models.llama import (
     ExtractSpec,
     _rotate_half,
@@ -221,9 +222,9 @@ def qwen2vl_vision_features(
         k = _rope_f32(k, cos, sin)
         attn = torch.empty_like(q)
         for b in range(B):   # one image's (H, N, N) probabilities at a time
-            logits = torch.einsum("qhd,khd->hqk", q[b], k[b]).to(torch.float32)
-            probs = torch.softmax(logits * scale, dim=-1)
-            attn[b] = torch.einsum("hqk,khd->qhd", probs.to(v.dtype), v[b])
+            logits = torch.einsum("qhd,khd->hqk", q[b], k[b])
+            probs = scaled_softmax_(logits, scale)      # K4, over the logits
+            attn[b] = torch.einsum("hqk,khd->qhd", probs, v[b])
             del logits, probs
         x = x + row_linear(attn.reshape(B, N, -1), blk["proj"], split_group(blk, "attn"))
         m = _lin(_ln(x, blk["norm2"]), blk["fc1"])

@@ -7,9 +7,16 @@ torchvision's ``ToPILImage`` does (truncation), and resized to the image
 with PIL's LANCZOS, which quantizes to uint8 between its two passes. Every
 linear stage is a constant matrix built in numpy (``replicate_fir_matrix``,
 ``_lanczos_matrix_np`` and cv2's cubic, ``_cubic_matrix_np``, are copies:
-``attwarp_tpu.warp.blend`` imports JAX) and applied as f32 matmuls. On
-the card those matmuls need ``torch.backends.cuda.matmul.allow_tf32 =
-False`` (PyTorch's default): TF32 would cost the 1-LSB mask parity.
+``attwarp_tpu.warp.blend`` imports JAX) and applied as f32 matmuls, except
+the box filter (``_box_pass``). On the card those matmuls need
+``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default):
+TF32 would cost the 1-LSB mask parity.
+
+The box filter is rounded as the CPU's f32 matmul rounds it, on every
+device: the truncation after it puts cells that ``enhance`` saturates
+(near 1.0) on the 254/255 boundary, where the card's matmul, summing in
+another order, moved whole patches of the mask a level from the CPU's
+(and from JAX's, which rounds as the CPU does).
 
 Functions take a leading batch dimension: ``mota_mask`` maps ``(B, h, w)``
 to ``(B, H, W)``. ``blend_mask`` (one image's mask and JET overlay, the
@@ -75,15 +82,45 @@ def _const(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(m, dtype=torch.float32).to(like.device)
 
 
+@lru_cache(maxsize=64)
+def _box_bands_np(n: int, kernel_size: int) -> np.ndarray:
+    """The box matrix's f32 weights by offset: row ``d + r`` holds
+    ``B[i, i + d]`` for d = -r..r (0 where ``i + d`` falls outside)."""
+    B = _box_matrix_np(n, kernel_size).astype(np.float32)
+    r = kernel_size // 2
+    bands = np.zeros((2 * r + 1, n), np.float32)
+    for d in range(-r, r + 1):
+        for i in range(max(0, -d), min(n, n - d)):
+            bands[d + r, i] = B[i, i + d]
+    return bands
+
+
+def _box_pass(x: torch.Tensor, kernel_size: int, dim: int) -> torch.Tensor:
+    """The box matrix applied along ``dim`` of f32 ``x`` with the CPU f32
+    matmul's rounding: each output one fused multiply-add a term, in
+    ascending order of the terms, rounded to f32. Emulated in f64 (a
+    product of two f32 values is exact there), so every device gives the
+    same bits."""
+    n, r = x.shape[dim], kernel_size // 2
+    bands = torch.as_tensor(_box_bands_np(n, kernel_size), dtype=torch.float64,
+                            device=x.device)
+    shape = [1] * x.ndim
+    shape[dim] = n
+    acc = torch.zeros_like(x)
+    for d in range(-r, r + 1):
+        # out of range, the weight is 0 and the clamped index any value
+        idx = torch.clamp(torch.arange(n, device=x.device) + d, 0, n - 1)
+        term = bands[d + r].reshape(shape) * x.index_select(dim, idx).to(torch.float64)
+        acc = (term + acc.to(torch.float64)).to(torch.float32)
+    return acc
+
+
 def revise_mask(patch_mask: torch.Tensor, kernel_size: int = 3,
                 enhance_coe: float = 10.0) -> torch.Tensor:
-    """Min-normalize -> enhance -> replicate-padded box filter, as two
-    matmuls (llava.py:223-238)."""
+    """Min-normalize -> enhance -> replicate-padded box filter
+    (llava.py:223-238): ``By @ m @ Bx.T`` as the CPU rounds it."""
     m = enhance(normalize_minmax(patch_mask, "min"), coe=enhance_coe)
-    h, w = m.shape[-2], m.shape[-1]
-    By = _const(_box_matrix_np(h, kernel_size), m)
-    Bx = _const(_box_matrix_np(w, kernel_size), m)
-    return torch.matmul(torch.matmul(By, m), Bx.T)
+    return _box_pass(_box_pass(m, kernel_size, -2), kernel_size, -1)
 
 
 def _lanczos(x: np.ndarray, a: float = 3.0) -> np.ndarray:

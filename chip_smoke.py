@@ -29,6 +29,11 @@ NVIDIA GPU.
    driver's LLaVA-1.5-7B extraction prefill (B=8, T=640), at a
    tensor-parallel rank's heads (n_model=2: 16/16 and 14/2, B=4, T=640;
    step 15), all with per-row left padding, plus a ragged T=200.
+5b. Kernel K4 (the towers' scaled row softmax, in place) against its plain
+   version at one Qwen2-VL-7B image's (16, 2304, 2304) logits and a batch
+   of 8 CLIP ViT-L/14-336 (577 tokens) and SigLIP-so400m (729) images:
+   within one bf16 ulp, rows summing to 1. Steps 6, 7, 13b and 13c count
+   its launches: one a tower block (and image, in Qwen2-VL) a pass.
 6. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
@@ -219,10 +224,10 @@ NVIDIA GPU.
     per-sample copies of it (tokens equal, maps cos > 0.9999). Step 17's
     wall is printed.
 
-The run's order: 1-5, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 17a, 17c,
+The run's order: 1-5, 5b, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 17a, 17c,
 13a, 13b, 7, 8 (Qwen), 14c, 17b, 13c, 9, 13d, 15, 16.
 
-Steps 3-5 time each kernel at its main-path shapes with L2 flushed before
+Steps 3-5b time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
 HBM (the time with L2 warm is reported beside it as ``warm_ms``), beside
 its plain version, the least time the card could take
@@ -232,7 +237,8 @@ PyTorch call computing the same function where there is one:
 ``F.grid_sample`` for K1 and its backward for K1's backward (timed with L2
 warm too, ``library_warm_ms``) and
 ``F.scaled_dot_product_attention`` (fastest backend that takes a bool
-mask) for K2, each checked to agree with the plain version; none for K3.
+mask) for K2, each checked to agree with the plain version; none for K3
+and K4.
 
 Run from the repo root:  python3 chip_smoke.py
 Exits non-zero on any failure and when no CUDA device is present. The last
@@ -891,6 +897,50 @@ def phase_k2(dev):
     return out
 
 
+def phase_k4(dev):
+    """K4 at the towers' shapes: within one bf16 ulp of its plain version
+    (the four PyTorch calls it replaced), rows summing to 1; its time, L2
+    flushed before every call, beside the plain version's and the bound."""
+    import math
+
+    import torch
+
+    from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_, scaled_softmax_plain
+
+    out = {}
+    # one Qwen2-VL-7B image (16 heads over 2304 patches), a batch of 8 CLIP
+    # ViT-L/14-336 images (577 tokens) and of 8 SigLIP-so400m ones (729)
+    for name, shape, scale in (("qwen2vl_image", (16, 2304, 2304), 1.0 / math.sqrt(80)),
+                               ("clip_batch8", (8, 16, 577, 577), 1.0 / 8),
+                               ("siglip_batch8", (8, 16, 729, 729), 1.0 / math.sqrt(72))):
+        g = torch.Generator(device=dev).manual_seed(4)
+        x = ((torch.rand(shape, generator=g, device=dev) * 60.0 - 30.0) / scale).to(torch.bfloat16)
+        ref = scaled_softmax_plain(x, scale)
+        got = scaled_softmax_(x.clone(), scale)
+        torch.cuda.synchronize()
+        ulps = (got.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item()
+        sums = (got.float().sum(-1) - 1.0).abs().max().item()
+        L = shape[-1]
+        rows = x.numel() // L
+        t = alternate_ms({"plain": lambda: scaled_softmax_plain(x, scale),
+                          "kernel": lambda: scaled_softmax_(x, scale)}, 20, cold=True)
+        warm = cuda_ms(lambda: scaled_softmax_(x, scale), 20)
+        out[name] = e = with_bound(
+            {"ulps": ulps, "ms": t["kernel"], "warm_ms": warm, "plain_ms": t["plain"],
+             "library_ms": None, "library_note": "no single PyTorch call scales and takes "
+             "the softmax in f32 from bf16 to bf16"},
+            (4 * rows * L, 5 * rows * L))
+        print(f"[5b K4 scaled_softmax_] {name} {tuple(shape)} bf16: vs plain {ulps} ulp "
+              f"(tol 1), rows sum to 1 within {sums:.3g} (tol {2.0 ** -7:.3g}) | kernel "
+              f"{t['kernel']:.4f} ms (L2 warm {warm:.4f}), plain {t['plain']:.4f} ms"
+              + _bound_text(e))
+        check(ulps <= 1 and sums <= 2.0 ** -7, f"K4 disagrees with its plain version ({name})")
+        del x, ref, got
+    _flush_buf.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 IMAGES_SEED = 0
 QUESTIONS = ["what is the text on the label?", "what is shown here?",
              "read the code on the tag", "what is the key phrase in the image?"]
@@ -903,17 +953,36 @@ def _images():
     return [(rng.random((480, 640, 3)) * 255).astype(np.uint8) for _ in range(4)]
 
 
+def _k4_want(vision, images, tower_calls) -> int:
+    """K4's launches for ``images`` through the vision tower (config
+    ``vision``) in ``tower_calls`` calls: one a block and image (Qwen2-VL),
+    or one a block up to the feature layer (CLIP, layer -2) and call. A
+    pipeline run makes one call a pass; ServeEngine one an admission group,
+    the chunked engine one a request."""
+    if hasattr(vision, "depth"):
+        return images * vision.depth
+    return tower_calls * (vision.num_hidden_layers - 1)
+
+
+def _tower_counters():
+    """``_counters()`` and K4, for the paths that run a vision tower."""
+    from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_
+
+    return {**_counters(), "scaled_softmax_": scaled_softmax_}
+
+
 def _drive(tag, backend, n_side, counters, want, int8_want=0):
     """One warm-up run of the pipeline, then one timed run with every
     kernel's launch count (and the int8 product's, which must be
-    ``int8_want``) set to 0 just before it and read just after; checks the
-    counts, the outputs, and the masks and warps against the port's CPU
-    path. Returns (the counts, the run's wall, pass walls and peak
-    memory)."""
+    ``int8_want``, and K4's, ``_k4_want``) set to 0 just before it and read
+    just after; checks the counts, the outputs, and the masks and warps
+    against the port's CPU path. Returns (the counts, the run's wall, pass
+    walls and peak memory)."""
     import numpy as np
     import torch
 
     from attwarp_tpu_torch.extract.resize import resize_scale_device
+    from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_
     from attwarp_tpu_torch.numerics.quant import int8_matmul
     from attwarp_tpu_torch.pipeline import AttWarpPipeline
     from attwarp_tpu_torch.warp.blend import mota_mask
@@ -928,7 +997,7 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
 
     torch.cuda.reset_peak_memory_stats()
     backend.seconds.clear()
-    for fn in (*counters.values(), int8_matmul):
+    for fn in (*counters.values(), int8_matmul, scaled_softmax_):
         fn.launches = 0
     t0 = time.perf_counter()
     res = pipe.run(images, QUESTIONS)
@@ -936,6 +1005,8 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
     total = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     launches["int8_matmul"] = int8_matmul.launches
+    launches["scaled_softmax_"] = scaled_softmax_.launches
+    k4_want = _k4_want(backend.model.cfg.vision, 2 * len(images), 2)
     peak = torch.cuda.max_memory_allocated()
 
     p1, p2 = backend.seconds["pass1"], backend.seconds["pass2"]
@@ -945,7 +1016,8 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
     print(f"[{tag}] second answers {res.second_answers}")
     print(f"[{tag}] launches: " + ", ".join(
         f"{name} {launches[name]} (expected {want[name]})" for name in counters)
-        + f", int8_matmul {launches['int8_matmul']} (expected {int8_want})")
+        + f", int8_matmul {launches['int8_matmul']} (expected {int8_want})"
+        + f", scaled_softmax_ {launches['scaled_softmax_']} (expected {k4_want})")
     print(f"[{tag}] wall: total {total:.3f} s | pass 1 {p1:.3f} s | mask+warp "
           f"and resizes {total - p1 - p2:.3f} s | pass 2 {p2:.3f} s | "
           f"{4 / total:.3f} samples/s | peak memory {peak / 2**30:.2f} GiB")
@@ -962,6 +1034,7 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
     for name in counters:
         check(launches[name] == want[name], f"{name} launch count")
     check(launches["int8_matmul"] == int8_want, "int8_matmul launch count")
+    check(launches["scaled_softmax_"] == k4_want, "scaled_softmax_ launch count")
 
     # the card's masks (from its maps) and warps (from its masks) against
     # the port's CPU path on the same inputs
@@ -1181,16 +1254,17 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     kernel's launch count set to 0 just before it and read just after.
     Prints tokens/s, TTFT p50/p95, admission waves, peak memory and wall;
     checks the outputs and that K3 = layers x decode steps, K2 = layers x
-    admission prefills (0 without ``+flash`` or in the chunked engine) and
-    the int8 product = ``int8_per_step`` x (prefills + decode steps).
-    Returns (launch counts, the outputs, the run's figures)."""
+    admission prefills (0 without ``+flash`` or in the chunked engine), K4
+    = the vision tower's blocks x its calls (``_k4_want``) and the int8
+    product = ``int8_per_step`` x (prefills + decode steps). Returns
+    (launch counts, the outputs, the run's figures)."""
     import numpy as np
     import torch
 
     from attwarp_tpu_torch.cli.serve import serve
     from attwarp_tpu_torch.numerics.quant import int8_matmul
 
-    counters = _counters()
+    counters = _tower_counters()
     for fn in (*counters.values(), int8_matmul):
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1210,6 +1284,9 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     flash = bool(backend.use_flash) and not chunked_prefill
     want = {"warp_resample": 0, "decode_attn_int8": L * eng.decode_steps,
             "flash_prefill": L * eng.prefill_groups if flash else 0,
+            "scaled_softmax_": _k4_want(backend.model.cfg.vision, len(requests),
+                                        len(requests) if chunked_prefill
+                                        else eng.prefill_groups),
             "int8_matmul": int8_per_step * (eng.prefill_groups + eng.decode_steps)}
     buckets = sorted({-(-len(r["input_ids"]) // 64) * 64 for r in requests})
     admit_s = sum(end - start for start, end, _ in eng.admit_log)
@@ -2759,7 +2836,7 @@ def _phase15_rank(rank, world, dev):
         torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = _counters()
+    counters = _tower_counters()
     out = {}
     tp = make_mesh(n_data=1, n_model=2)
     sp_mesh = make_mesh(n_data=2, n_model=1)
@@ -2910,7 +2987,7 @@ def phase_parallel(dev):
     from attwarp_tpu_torch.testing.ranks import run_ranks
     from attwarp_tpu_torch.warp.warp import warp_batch_by_attention
 
-    counters = _counters()
+    counters = _tower_counters()
     paths = {}
     # the unsharded references, on the same seeded weights
     cfg_s, small = _p15_model(2, torch.float32, dev)
@@ -2955,7 +3032,8 @@ def phase_parallel(dev):
         got = _p15_read(counters, t0)
         outs[name] = [res[r] for r in rids]
         want = {"warp_resample": 0, "flash_prefill": L * eng.prefill_groups,
-                "decode_attn_int8": L * eng.decode_steps}
+                "decode_attn_int8": L * eng.decode_steps,
+                "scaled_softmax_": _k4_want(cfg.vision, len(reqs), eng.prefill_groups)}
         n_tok = sum(len(o) for o in outs[name])
         print(f"[15c {name}] 16 requests, 8 slots, {n_tok} tokens in {got['wall']:.3f} s "
               f"({n_tok / got['wall']:.1f} tok/s), {eng.prefill_groups} admission groups, "
@@ -3027,7 +3105,8 @@ def phase_parallel(dev):
         bar(max(wrong) < P15_ROWS_FLOOR, "15a: the prefill maps' floor misses a wrong cut")
         p = out["a_pipe"]
         want = {"warp_resample": 1, "flash_prefill": 2 * k2_pass,
-                "decode_attn_int8": 20 * (L - 1) + 20 * L}
+                "decode_attn_int8": 20 * (L - 1) + 20 * L,
+                "scaled_softmax_": _k4_want(cfg.vision, 8, 2)}
         print(f"[15a rank {r}] two-pass pipeline: wall {p['wall']:.3f} s (pass 1 "
               f"{p['pass1']:.3f}, pass 2 {p['pass2']:.3f}; {4 / p['wall']:.3f} samples/s), "
               f"peak {p['peak'] / 2**30:.2f} GiB, gloo host-staged collectives {p['staged']} "
@@ -3744,6 +3823,7 @@ def main(argv=None) -> int:
         _phase("3 K1 vs parent", phase_k1_parent, k1, args.parent)
     k3 = _phase("4 K3", phase_k3, dev)
     k2 = _phase("5 K2", phase_k2, dev)
+    k4 = _phase("5b K4", phase_k4, dev)
     paths = {}
     paths["llava"], backend, base6 = _phase("6 llava", phase_slice, dev)
     paths["llava_serve"], paths["llava_chunked"], base8 = _phase(
@@ -3821,6 +3901,16 @@ def main(argv=None) -> int:
                                "llava7b_dataset", "llava7b_dataset_serve", "llava7b_tp2",
                                "llava7b_disagg", "qwen7b_tp2")}},
     ]
+    # K4 is counted on the paths that check it: the pipelines (``_drive``),
+    # the serve engines (``_serve_run``) and step 15's
+    k4_paths = {k: p["scaled_softmax_"] for k, p in paths.items() if "scaled_softmax_" in p}
+    kernels.append({"name": "scaled_softmax_", "route": "cuda",
+                    "source": "attwarp_tpu_torch/csrc/attn_softmax.cu",
+                    "replaces": "none: the softmax of attwarp_tpu/models/{qwen2vl,clip_vit}.py's "
+                                "towers is plain einsum code",
+                    "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
+                    **k4["qwen2vl_image"],
+                    **{k: k4[k] for k in ("clip_batch8", "siglip_batch8")}})
     # the int8 product is a library call (torch._int_mm), not a kernel of
     # the port: its own line, beside the kernels'
     print(json.dumps({"library_products": [{

@@ -50,6 +50,24 @@ def test_revise_mask_matches_jax(rng):
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
+@pytest.mark.parametrize("side", [24, 27], ids=["llava_qwen", "siglip"])
+def test_box_filter_rounds_as_the_reference_matmul(rng, side):
+    """The box filter, an ordered f64 emulation of the f32 matmul, gives
+    JAX's f32 matmul's bits on the same enhanced map, at the maps' sides
+    and with a saturated patch (cells at 1.0, on the truncation's 254/255
+    boundary after the filter): the same arithmetic on every device."""
+    from attwarp_tpu.numerics.precision import matmul_f32
+
+    att = rng.random((side, side)).astype(np.float32) ** 3
+    att[4:9, 4:9] = 4.0 + rng.random((5, 5)).astype(np.float32) * 0.1
+    e = jblend.enhance(jblend.normalize_minmax(jnp.asarray(att), "min"), coe=10.0)
+    box = jnp.asarray(jblend._box_matrix_np(side, 3), jnp.float32)
+    ref = np.asarray(matmul_f32(matmul_f32(box, e), box.T))
+    assert (ref == 1.0).sum() >= 9
+    got = tblend._box_pass(tblend._box_pass(_t(e), 3, -2), 3, -1).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_matrix_builders_are_copies():
     """The copied numpy matrix builders equal the originals exactly."""
     np.testing.assert_array_equal(tblend._lanczos_matrix_np(24, 77),

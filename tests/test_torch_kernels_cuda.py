@@ -9,10 +9,13 @@ JAX, so it also runs on a machine that has only PyTorch:
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_, scaled_softmax_plain
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
 from attwarp_tpu_torch.kernels.warp_resample import (
@@ -295,6 +298,104 @@ def test_wrappers_reject_bad_cuda_input(cuda):
     q2, k2, v2, m2 = _k2_case(cuda, 1, 64, 2, 2, seed=7)
     with pytest.raises(ValueError):
         flash_prefill(q2[..., :64], k2[..., :64], v2[..., :64], m2, 0.1)  # hd 64
+
+
+def _k4_logits(dev, shape, scale, dtype=torch.bfloat16, seed=4):
+    """Uniform logits that span -30 to 30 once scaled, as a tower's do."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(shape, generator=g, device=dev) * 60.0 - 30.0
+    return (x / scale).to(dtype)
+
+
+def _ulps_apart(a, b):
+    """The largest distance in units of the last place between two tensors
+    of non-negative values (their bit patterns are ordered like them)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.view(view).long() - b.view(view).long()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,scale", [
+    ((16, 2304, 2304), 1.0 / math.sqrt(80)),     # Qwen2-VL-7B's tower, one image
+    ((8, 16, 577, 577), 1.0 / 8),                # CLIP ViT-L/14-336, a LLaVA batch
+    ((8, 16, 729, 729), 1.0 / math.sqrt(72)),    # SigLIP-so400m, a Uni-MoE batch
+    ((16, 3136, 3136), 1.0 / math.sqrt(80)),     # Qwen2-VL at 784 px: the long rows
+    ((16, 5184, 5184), 1.0 / math.sqrt(80)),     # Qwen2-VL at 1008 px
+], ids=["qwen2vl", "clip", "siglip", "qwen2vl_784px", "qwen2vl_1008px"])
+def test_k4_cuda_matches_plain(cuda, shape, scale):
+    """Every value within one bf16 ulp of the plain version (only the sum's
+    order differs), rows summing to 1, written over the logits."""
+    x = _k4_logits(cuda, shape, scale)
+    ref = scaled_softmax_plain(x, scale)
+    ptr, before = x.data_ptr(), scaled_softmax_.launches
+    out = scaled_softmax_(x, scale)
+    torch.cuda.synchronize()
+    assert out is x and out.data_ptr() == ptr
+    assert scaled_softmax_.launches == before + 1
+    assert _ulps_apart(out, ref) <= 1
+    assert (out.float().sum(-1) - 1.0).abs().max().item() <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 1), torch.bfloat16), ((5, 7), torch.bfloat16), ((9, 9), torch.bfloat16),
+    ((33, 577), torch.bfloat16), ((6, 768), torch.bfloat16), ((6, 769), torch.bfloat16),
+    ((6, 2311), torch.bfloat16), ((5, 3137), torch.bfloat16),
+    ((4, 3), torch.float32), ((2, 16, 577), torch.float32), ((2, 16, 2304), torch.float32),
+    ((3, 2305), torch.float32), ((3, 5184), torch.float32),
+])
+def test_k4_cuda_row_edges(cuda, shape, dtype):
+    """Rows shorter than a vector, rows off the 16-byte boundary in every
+    phase, the last rows of each register form and the first of the next,
+    the long-row form, float32: within one bf16 ulp of the plain
+    version, or 8 float32 ulps (the f32 sum's order differs from PyTorch's
+    and moves it by a few ulps); a row of equal logits gives 1/L
+    everywhere."""
+    scale = 0.1
+    x = _k4_logits(cuda, shape, scale, dtype, seed=shape[-1])
+    ref = scaled_softmax_plain(x, scale)
+    scaled_softmax_(x, scale)
+    torch.cuda.synchronize()
+    assert _ulps_apart(x, ref) <= (1 if dtype == torch.bfloat16 else 8)
+    L = shape[-1]
+    flat = torch.full(shape, 1.25, device=cuda, dtype=dtype)
+    scaled_softmax_(flat, scale)
+    assert torch.equal(flat, torch.full_like(flat, 1.0 / L))
+
+
+@pytest.mark.cuda
+def test_k4_cuda_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros((4, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        scaled_softmax_(x, 0.1)
+    with pytest.raises(ValueError):
+        scaled_softmax_(torch.zeros((2, 0), device=cuda, dtype=torch.bfloat16), 0.1)
+    with pytest.raises(ValueError):
+        scaled_softmax_(torch.zeros((64, 4), device=cuda, dtype=torch.bfloat16).t(), 0.1)
+
+
+@pytest.mark.cuda
+def test_mota_mask_cuda_equals_the_cpu(cuda):
+    """The MOTA mask's box filter on the card, bit for bit the CPU's on the
+    same enhanced maps, whose saturated patches put filtered cells on the
+    truncation's 254/255 boundary (where a matmul summing in the card's
+    order moved them); the masks within the repo's 1 LSB (``enhance``'s
+    reductions and sigmoid still round by device)."""
+    from attwarp_tpu_torch.warp.blend import _box_pass, enhance, mota_mask, normalize_minmax
+
+    rng = np.random.default_rng(20)
+    att = rng.random((8, 24, 24)).astype(np.float32) ** 3
+    att[:, 6:12, 6:12] = 4.0 + rng.random((8, 6, 6)).astype(np.float32) * 0.1
+    att = torch.as_tensor(att)
+    e = enhance(normalize_minmax(att, "min"))
+    assert (e == 1.0).sum() >= 8 * 9
+
+    def box(x):
+        return _box_pass(_box_pass(x, 3, -2), 3, -1)
+
+    assert torch.equal(box(e.to(cuda)).cpu(), box(e))
+    got = mota_mask(att.to(cuda), (512, 640)).cpu().int()
+    assert (got - mota_mask(att, (512, 640)).int()).abs().max().item() <= 1
 
 
 def _grad_close(got, ref, rel):
