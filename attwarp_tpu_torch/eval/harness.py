@@ -110,8 +110,7 @@ class EngineAnswerBackend:
             max_seq = -(-max_seq // 64) * 64   # the int8 cache's 64-multiple
             per_elem = 1 + 4 / t.head_dim
         else:                                  # the engine's dense cache dtype
-            text = model.params["llama"] if "llama" in model.params else model.params["text"]
-            per_elem = text["embed_tokens"].element_size()
+            per_elem = model.text_params["embed_tokens"].element_size()
         per_slot = 2 * t.num_hidden_layers * t.kv_heads * t.head_dim * max_seq * per_elem
         free, _total = torch.cuda.mem_get_info(dev)
         avail = free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)

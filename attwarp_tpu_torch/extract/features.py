@@ -108,7 +108,7 @@ class LlavaFeatureExtractor:
         if self.backend.tokenizer is None:
             raise RuntimeError("LlavaFeatureExtractor needs a backend with a tokenizer")
         return _text_embeddings(self.backend.tokenizer,
-                                self.backend.model.params["llama"]["embed_tokens"], texts,
+                                self.backend.model.text_params["embed_tokens"], texts,
                                 self.max_text_len, add_special_tokens=True)
 
 
@@ -142,7 +142,7 @@ class Qwen2VLFeatureExtractor:
         if self.backend.tokenizer is None:
             raise RuntimeError("Qwen2VLFeatureExtractor needs a backend with a tokenizer")
         return _text_embeddings(self.backend.tokenizer,
-                                self.backend.model.params["text"]["embed_tokens"], texts,
+                                self.backend.model.text_params["embed_tokens"], texts,
                                 self.max_text_len, add_special_tokens=False)
 
 

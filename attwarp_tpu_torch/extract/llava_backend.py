@@ -1,31 +1,22 @@
 """LLaVA extraction backend (counterpart of
-``attwarp_tpu/extract/llava_backend.py``).
+``attwarp_tpu/extract/llava_backend.py``): ``extract/backend.py``'s
+``MLLMBackend`` over ``models/llava.py``, maps (B, n, n).
 
-``extract(images, questions) -> (maps (B, n, n), texts)`` and the
-answer-only ``answer_batch`` over ``models/llava.py``; a sequence
-``extract_layer`` extracts every listed layer in one pass, maps (L, B, n, n).
 ``extract_from_ids`` is the tokenizer-free API that ``extract`` calls after
-its own prompt assembly (``tools/bench_extract.py`` after its own). Images
-are either a ``(B, S, S, C)`` tensor already resized to the vision tower's
-input (floats in [0, 1] or integers in [0, 255]), as the pipeline passes
-them, or a sequence of host images, which are resized on the model's
-device first.
-``_preprocess`` gives the serving engines one image's pixels, and
-``save``/``load`` keep the checkpoint directory of ``extract/checkpoint.py``.
-``from_hf`` loads an HF checkpoint (a local directory; nothing is
-downloaded) onto a device. ``quantize_int8`` (``+int8``) and
-``quantize_lm_head`` (``+lm8``) turn the decoder's linears and the LM head
-into int8 in place (``numerics/quant.py``).
+its own prompt assembly (``tools/bench_extract.py`` after its own).
+``load`` reads the checkpoint directory ``save`` writes, and ``from_hf``
+loads an HF checkpoint (a local directory; nothing is downloaded) onto a
+device.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
-import numpy as np
 import torch
 
-from attwarp_tpu_torch.extract.checkpoint import load_checkpoint, save_checkpoint
+from attwarp_tpu_torch.extract.backend import MLLMBackend
+from attwarp_tpu_torch.extract.checkpoint import load_checkpoint
 from attwarp_tpu_torch.extract.hf import (
     first_defined,
     load_hf_model,
@@ -33,9 +24,7 @@ from attwarp_tpu_torch.extract.hf import (
     rope_field,
     scalar_id,
 )
-from attwarp_tpu_torch.extract.offsets import left_pad
 from attwarp_tpu_torch.extract.prompts import build_prompt
-from attwarp_tpu_torch.extract.resize import clip_pixels
 from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig
 from attwarp_tpu_torch.models.llama import ExtractSpec, LlamaConfig
 from attwarp_tpu_torch.models.llava import (
@@ -44,36 +33,14 @@ from attwarp_tpu_torch.models.llava import (
     config_from_dict,
     port_hf_llava_weights,
 )
-from attwarp_tpu_torch.numerics.quant import quantize_decoder_params, quantize_lm_head
 from attwarp_tpu_torch.utils import profiling
 from attwarp_tpu_torch.utils.device import require_device
 
 
-class LlavaBackend:
-    # extract/answer_batch take a (B, S, S, C) tensor on the model's device
-    supports_device_pixels = True
+class LlavaBackend(MLLMBackend):
     name = "llava-torch"
 
-    def __init__(self, model: LlavaModel, tokenizer=None,
-                 extract_layer: ExtractSpec = 20, kv_quant: bool = False,
-                 use_flash: bool = False):
-        self.model = model
-        # anything with encode(text, add_special_tokens) and
-        # decode(ids, skip_special_tokens): the port's DryRunTokenizer or a
-        # transformers tokenizer
-        self.tokenizer = tokenizer
-        self.extract_layer = extract_layer
-        # int8 KV cache (the '+kv8' suffix): decode attention through K3
-        self.kv_quant = kv_quant
-        # flash prefill (the '+flash' suffix): prefill attention through K2
-        self.use_flash = use_flash
-
     # ── checkpoints ────────────────────────────────────────────────────
-    def save(self, path) -> None:
-        """Write ``params.pt``, ``config.json`` and the tokenizer's files
-        (where the backend has one) into directory ``path``."""
-        save_checkpoint(path, self.model.params, self.model.cfg, self.tokenizer)
-
     @classmethod
     def load(cls, path, device, extract_layer: ExtractSpec = 20,
              tokenizer=None) -> "LlavaBackend":
@@ -129,25 +96,6 @@ class LlavaBackend:
             eos_token_id=scalar_id(first_defined(eos, 2), 2),
         )
 
-    # ── int8 weights ───────────────────────────────────────────────────
-    def quantize_int8(self) -> "LlavaBackend":
-        """The LLaMA decoder's seven linears to int8 (w8a8, ``+int8``), in
-        place, one layer at a time on the weights' device: each layer's
-        dense weights are freed as its int8 form is made. Embeddings, LM
-        head, norms, projector and CLIP tower keep their dtype."""
-        quantize_decoder_params(self.model.params["llama"])
-        return self
-
-    def quantize_lm_head(self) -> "LlavaBackend":
-        """The LM head to int8 (``+lm8``), in place, untied from
-        ``embed_tokens`` where it was tied."""
-        quantize_lm_head(self.model.params["llama"])
-        return self
-
-    @property
-    def device(self) -> torch.device:
-        return self.model.device
-
     @property
     def image_size(self) -> int:
         return self.model.cfg.vision.image_size
@@ -155,12 +103,6 @@ class LlavaBackend:
     @property
     def num_patches_side(self) -> int:
         return self.model.cfg.vision.image_size // self.model.cfg.vision.patch_size
-
-    def _preprocess(self, image: np.ndarray) -> np.ndarray:
-        """One host image -> CLIP-normalized (S, S, 3) float32 pixels on the
-        host, as JAX's ``_preprocess``: to [0, 1] by dtype, resized like
-        ``jax.image.resize`` "linear" (on the model's device), normalized."""
-        return clip_pixels([image], self.image_size, self.device)[0].cpu().numpy()
 
     def build_ids(self, question: str) -> List[int]:
         """One question -> unpadded expanded prompt ids (llava_v1 template,
@@ -182,15 +124,8 @@ class LlavaBackend:
         image-span starts (B,) and CLIP-normalized pixels, on the model's
         device."""
         with profiling.span("backend.prepare"):
-            padded, mask = left_pad([self.build_ids(q) for q in questions],
-                                    pad_id=self.model.cfg.pad_token_id, bucket=64)
-            mask = np.asarray(mask, bool)
-            if profiling.recording():
-                profiling.count("prefill_tokens", int(mask.sum()))
-            dev = self.device
-            ids = torch.as_tensor(np.asarray(padded, np.int64), device=dev)
-            return (ids, torch.as_tensor(mask, device=dev),
-                    self._img_start(ids), clip_pixels(images, self.image_size, dev))
+            ids, mask = self._prompt_ids(questions)
+            return ids, mask, self._img_start(ids), self._pixels(images)
 
     def _generate(self, ids, mask, img_start, pixels, extract_layer, max_new_tokens):
         return self.model.generate_with_attention(
@@ -198,18 +133,6 @@ class LlavaBackend:
             max_new_tokens=max_new_tokens, kv_quant=self.kv_quant,
             use_flash=self.use_flash,
         )
-
-    @profiling.span("backend.detokenize")   # the generated ids' fetch and decode
-    def _decode(self, gen: torch.Tensor) -> List[str]:
-        texts = []
-        for row in gen.cpu().tolist():
-            out = []
-            for t in row:
-                if t == self.model.cfg.eos_token_id:
-                    break
-                out.append(t)
-            texts.append(self.tokenizer.decode(out, skip_special_tokens=True).strip())
-        return texts
 
     def extract_from_ids(self, input_ids, attention_mask, pixel_values,
                          max_new_tokens: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -224,20 +147,3 @@ class LlavaBackend:
         pixels = torch.as_tensor(pixel_values, device=dev).to(torch.float32)
         return self._generate(ids, mask, self._img_start(ids), pixels,
                               self.extract_layer, max_new_tokens)
-
-    def extract(self, images, questions: Sequence[str],
-                max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
-        with profiling.span("backend.extract"):
-            ids, mask, _, pixels = self._prepare(images, questions)
-            gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
-            return maps, self._decode(gen)
-
-    def answer_batch(self, images, questions: Sequence[str],
-                     max_new_tokens: int = 64) -> List[str]:
-        """Answer-only greedy generate (``extract_layer=None``): no layer
-        builds a probabilities row and nothing is accumulated."""
-        with profiling.span("backend.answer"):
-            gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
-                                    max_new_tokens=max_new_tokens)
-            return self._decode(gen)
-

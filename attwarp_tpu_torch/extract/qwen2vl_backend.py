@@ -1,33 +1,25 @@
 """Qwen2-VL extraction backend (counterpart of
-``attwarp_tpu/extract/qwen2vl_backend.py``).
+``attwarp_tpu/extract/qwen2vl_backend.py``): ``extract/backend.py``'s
+``MLLMBackend`` over ``models/qwen2vl.py``, with the tokenizer-free
+``extract_from_ids`` that ``extract`` calls. The map's side follows the
+image: a ``size x size`` input gives ``size / (patch * merge)`` merged
+vision tokens a side (448 px -> 16x16, 672 px -> 24x24); the warp takes
+any grid.
 
-The same interface as ``extract/llava_backend.py``: ``device``,
-``image_size``, ``extract(images, questions) -> (maps (B, n, n), texts)``,
-the tokenizer-free ``extract_from_ids`` that ``extract`` calls, and the
-answer-only ``answer_batch``; a sequence ``extract_layer`` extracts every
-listed layer in one pass, maps (L, B, n, n). The map's side follows the image: a
-``size x size`` input gives ``size / (patch * merge)`` merged vision tokens a
-side (448 px -> 16x16, 672 px -> 24x24); the warp takes any grid.
-
-Images are a ``(B, S, S, C)`` tensor already resized to ``image_size``, as
-the pipeline passes them, or host images, which are resized on the model's
-device first; then CLIP-normalized (Qwen2-VL's processor uses the OpenAI
-CLIP statistics) and patchified on the device. ``_preprocess`` gives the
-serving engines one image's pixels, and ``save``/``load`` keep the
-checkpoint directory of ``extract/checkpoint.py``. ``from_hf`` loads an HF
-checkpoint (a local directory) onto a device; ``quantize_int8`` (``+int8``)
-and ``quantize_lm_head`` (``+lm8``) turn the text decoder's linears and the
-LM head into int8 in place (``numerics/quant.py``).
+Images are CLIP-normalized (Qwen2-VL's processor uses the OpenAI CLIP
+statistics) at ``image_size`` and patchified on the device by the model's
+``image_input``. ``load`` reads the checkpoint directory ``save`` writes,
+and ``from_hf`` loads an HF checkpoint (a local directory) onto a device.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
-import numpy as np
 import torch
 
-from attwarp_tpu_torch.extract.checkpoint import load_checkpoint, save_checkpoint
+from attwarp_tpu_torch.extract.backend import MLLMBackend
+from attwarp_tpu_torch.extract.checkpoint import load_checkpoint
 from attwarp_tpu_torch.extract.hf import (
     first_defined,
     load_hf_model,
@@ -35,8 +27,6 @@ from attwarp_tpu_torch.extract.hf import (
     rope_field,
     scalar_id,
 )
-from attwarp_tpu_torch.extract.offsets import left_pad
-from attwarp_tpu_torch.extract.resize import clip_pixels
 from attwarp_tpu_torch.models.llama import ExtractSpec, extract_layers_tuple
 from attwarp_tpu_torch.models.qwen2vl import (
     Qwen2VLConfig,
@@ -44,32 +34,19 @@ from attwarp_tpu_torch.models.qwen2vl import (
     Qwen2VLTextConfig,
     Qwen2VLVisionConfig,
     config_from_dict,
-    patchify_batch,
     port_hf_qwen2vl_weights,
 )
-from attwarp_tpu_torch.numerics.quant import quantize_decoder_params, quantize_lm_head
 from attwarp_tpu_torch.utils import profiling
 from attwarp_tpu_torch.utils.device import require_device
 
 
-class Qwen2VLBackend:
-    # extract/answer_batch take a (B, S, S, C) tensor on the model's device
-    supports_device_pixels = True
+class Qwen2VLBackend(MLLMBackend):
     name = "qwen2vl-torch"
 
     def __init__(self, model: Qwen2VLModel, tokenizer=None,
                  extract_layer: ExtractSpec = 20, image_size: int = 448,
                  kv_quant: bool = False, use_flash: bool = False):
-        self.model = model
-        # anything with encode(text, add_special_tokens) and
-        # decode(ids, skip_special_tokens): the port's DryRunTokenizer or a
-        # transformers tokenizer
-        self.tokenizer = tokenizer
-        self.extract_layer = extract_layer
-        # int8 KV cache (the '+kv8' suffix): decode attention through K3
-        self.kv_quant = kv_quant
-        # flash prefill (the '+flash' suffix): the same K2 as LLaVA's
-        self.use_flash = use_flash
+        super().__init__(model, tokenizer, extract_layer, kv_quant, use_flash)
         self._check_image_size(image_size)
         n_layers = model.cfg.text.num_hidden_layers
         for layer in extract_layers_tuple(extract_layer):
@@ -86,11 +63,6 @@ class Qwen2VLBackend:
                              f"patch * merge = {unit}")
 
     # ── checkpoints ────────────────────────────────────────────────────
-    def save(self, path) -> None:
-        """Write ``params.pt``, ``config.json`` and the tokenizer's files
-        (where the backend has one) into directory ``path``."""
-        save_checkpoint(path, self.model.params, self.model.cfg, self.tokenizer)
-
     @classmethod
     def load(cls, path, device, extract_layer: ExtractSpec = 20, image_size: int = 448,
              tokenizer=None) -> "Qwen2VLBackend":
@@ -149,31 +121,6 @@ class Qwen2VLBackend:
             eos_token_id=scalar_id(first_defined(eos, 151645), 2),
         )
 
-    # ── int8 weights ───────────────────────────────────────────────────
-    def quantize_int8(self) -> "Qwen2VLBackend":
-        """The text decoder's seven linears to int8 (w8a8, ``+int8``; the
-        biased q/k/v keep their bias in f32), in place, one layer at a time
-        on the weights' device. Embeddings, LM head, norms and the vision
-        tower keep their dtype."""
-        quantize_decoder_params(self.model.params["text"])
-        return self
-
-    def quantize_lm_head(self) -> "Qwen2VLBackend":
-        """The LM head to int8 (``+lm8``), in place, untied from
-        ``embed_tokens`` where it was tied."""
-        quantize_lm_head(self.model.params["text"])
-        return self
-
-    @property
-    def device(self) -> torch.device:
-        return self.model.device
-
-    def _preprocess(self, image: np.ndarray) -> np.ndarray:
-        """One host image -> CLIP-normalized (S, S, 3) float32 pixels on the
-        host at ``image_size``, as JAX's ``_preprocess`` (the engine
-        patchifies them)."""
-        return self._pixels([image])[0].cpu().numpy()
-
     @property
     def num_patches_side(self) -> int:
         vcfg = self.model.cfg.vision
@@ -196,46 +143,13 @@ class Qwen2VLBackend:
                 + [cfg.image_token_id] * self.num_patches_side ** 2
                 + [cfg.vision_end_token_id] + suffix)
 
-    def _prompt_ids(self, questions):
-        """Prompts -> left-padded ids (B, T) and mask (B, T) bool on the
-        device."""
-        padded, mask = left_pad([self.build_ids(q) for q in questions],
-                                pad_id=self.model.cfg.pad_token_id, bucket=64)
-        mask = np.asarray(mask, bool)
-        if profiling.recording():
-            profiling.count("prefill_tokens", int(mask.sum()))
-        dev = self.device
-        return (torch.as_tensor(np.asarray(padded, np.int64), device=dev),
-                torch.as_tensor(mask, device=dev))
-
     def _prepare(self, images, questions):
         """Prompts -> left-padded ids (B, T) and mask (B, T) bool on the
-        device; images -> patches (B, N, C*T*P*P) and their grid."""
+        device; images -> what the model's tower takes (HF-patchified rows
+        (B, N, C*T*P*P)) and the image grid (t, h, w)."""
         with profiling.span("backend.prepare"):
             ids, mask = self._prompt_ids(questions)
-            return (ids, mask, *self._patches(self._pixels(images)))
-
-    def _pixels(self, images) -> torch.Tensor:
-        """Images -> the tower's normalized (B, S, S, 3) f32 pixels at
-        ``image_size`` on the model's device."""
-        return clip_pixels(images, self.image_size, self.device)
-
-    def _patches(self, pix: torch.Tensor):
-        """Normalized pixels (B, S, S, 3) -> what the model's tower takes
-        and the image grid (t, h, w): HF-patchified rows (B, N, C*T*P*P)."""
-        return patchify_batch(pix, self.model.cfg.vision)
-
-    @profiling.span("backend.detokenize")   # the generated ids' fetch and decode
-    def _decode(self, gen: torch.Tensor) -> List[str]:
-        texts = []
-        for row in gen.cpu().tolist():
-            out = []
-            for t in row:
-                if t == self.model.cfg.eos_token_id:
-                    break
-                out.append(t)
-            texts.append(self.tokenizer.decode(out, skip_special_tokens=True).strip())
-        return texts
+            return (ids, mask, *self.model.image_input(self._pixels(images)))
 
     def _generate(self, ids, mask, patches, grid, extract_layer, max_new_tokens):
         return self.model.generate_with_attention(
@@ -258,24 +172,6 @@ class Qwen2VLBackend:
         mask = torch.as_tensor(attention_mask, device=dev).to(torch.bool)
         pix = torch.as_tensor(image, device=dev).to(torch.float32)
         shared = pix.ndim == 3
-        patches, grid = self._patches(pix[None] if shared else pix)
+        patches, grid = self.model.image_input(pix[None] if shared else pix)
         return self._generate(ids, mask, patches[0] if shared else patches, grid,
                               self.extract_layer, max_new_tokens)
-
-    def extract(self, images, questions: Sequence[str],
-                max_new_tokens: int = 20) -> Tuple[torch.Tensor, List[str]]:
-        with profiling.span("backend.extract"):
-            with profiling.span("backend.prepare"):
-                ids, mask = self._prompt_ids(questions)
-                pixels = self._pixels(images)
-            gen, maps = self.extract_from_ids(ids, mask, pixels, max_new_tokens)
-            return maps, self._decode(gen)
-
-    def answer_batch(self, images, questions: Sequence[str],
-                     max_new_tokens: int = 64) -> List[str]:
-        """Answer-only greedy generate (``extract_layer=None``): no layer
-        builds a probabilities row and nothing is accumulated."""
-        with profiling.span("backend.answer"):
-            gen, _ = self._generate(*self._prepare(images, questions), extract_layer=None,
-                                    max_new_tokens=max_new_tokens)
-            return self._decode(gen)

@@ -3,12 +3,13 @@
 answer-only pass) over ``models/unimoe.py``'s model.
 
 What differs is the image path: pixels are normalized by SigLIP's
-statistics (mean and std 0.5) and go to the tower as they are, one
-``image_size`` square a sample (the tower's learned positions fix it, and
-it is to be given: 384 px at the published widths, 27 x 27 image tokens,
-no merge). ``moe_tally`` is the decoder's device tally of routed pairs
-(``models/moe.py::MoETally``). Only random weights are held: there is no
-checkpoint loading, and ``quantize_int8`` refuses the expert tree.
+statistics (mean and std 0.5) and go to the tower as they are
+(``UniMoEModel.image_input``), one ``image_size`` square a sample (the
+tower's learned positions fix it, and it is to be given: 384 px at the
+published widths, 27 x 27 image tokens, no merge). ``moe_tally`` is the
+decoder's device tally of routed pairs (``models/moe.py::MoETally``). Only
+random weights are held: there is no checkpoint loading, and
+``quantize_int8`` refuses the expert tree.
 """
 
 from __future__ import annotations
@@ -45,8 +46,3 @@ class UniMoEBackend(Qwen2VLBackend):
 
     def _pixels(self, images) -> torch.Tensor:
         return clip_pixels(images, self.image_size, self.device, SIGLIP_MEAN, SIGLIP_STD)
-
-    def _patches(self, pix: torch.Tensor):
-        """The tower takes the pixels themselves; the grid is the patches'."""
-        n = self.num_patches_side
-        return pix, (1, n, n)

@@ -25,8 +25,8 @@ K3 (``kernels/decode_attn.py``); a listed layer keeps the plain
 
 The decode step is written as ``decode_segment``s, split at the attention
 call of every layer that ``extract_layer`` does not list. On the card, over
-a cache leased from the pool (``lease_kv_cache``, as both generate loops and
-the serving engine take theirs), the segments are replayed from CUDA graphs
+a cache leased from the pool (``lease_kv_cache``, as the generate loop of
+``models/mllm.py`` and the serving engine take theirs), the segments are replayed from CUDA graphs
 and K3 runs eagerly between them (``models/decode_graph.py``); elsewhere
 the same segments run eagerly.
 

@@ -7,11 +7,8 @@ names (``{"vision": ..., "projector": ..., "llama": ...}``):
 ``port_hf_llava_weights`` an HF state dict, and ``random_params`` makes
 random weights on the device from a seeded ``torch.Generator``.
 
-``generate_with_attention`` is a Python decode loop with the JAX scan's
-semantics: the same EOS/PAD rule, and each extract layer's row accumulated
-at the prefill and at every decode step, finished rows included.
-``extract_layer`` is None (answer only), one layer, or a sequence of layers
-extracted in the same pass (``models/llama.py::extract_layers_tuple``).
+``LlavaModel`` fills in the family seam of ``models/mllm.py``, whose
+generate loop ``generate_with_attention`` runs.
 """
 
 from __future__ import annotations
@@ -24,17 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_layer_carry
 from attwarp_tpu_torch.models.clip_vit import ClipVisionConfig, clip_vision_features
-from attwarp_tpu_torch.models.llama import (
-    ExtractSpec,
-    LlamaConfig,
-    embed,
-    leased_kv_cache,
-    llama_decode_step,
-    llama_prefill,
-    local_kv_heads,
-)
+from attwarp_tpu_torch.models.llama import ExtractSpec, LlamaConfig, embed, rope_cos_sin
+from attwarp_tpu_torch.models.mllm import MLLM
 from attwarp_tpu_torch.numerics.quant import is_quantized, row_linear
 from attwarp_tpu_torch.parallel.comm import split_group
 from attwarp_tpu_torch.utils import profiling
@@ -88,16 +77,38 @@ def embed_and_splice(params, cfg: LlavaConfig, input_ids: torch.Tensor,
     return torch.where(is_img[..., None], img_at, emb)
 
 
-class LlavaModel:
-    """Config plus parameter tree, with the generate loop."""
-
-    def __init__(self, cfg: LlavaConfig, params: Dict[str, Any]):
-        self.cfg = cfg
-        self.params = params
+class LlavaModel(MLLM):
+    """Config plus parameter tree: ``models/mllm.py``'s generate loop over
+    LLaVA's seam. The prompt's positions count its valid tokens (HF's
+    left-padding convention), so a row's rotary offset is minus its left
+    pad; the map is the square of the CLIP tower's patches."""
 
     @property
-    def device(self) -> torch.device:
-        return self.params["llama"]["embed_tokens"].device
+    def text_params(self) -> Dict[str, Any]:
+        return self.params["llama"]
+
+    def prompt(self, ids: torch.Tensor, mask: torch.Tensor, image, host):
+        """(embeddings, cos, sin, offset) of a left-padded prompt, the
+        projected CLIP features of ``image`` (CLIP-normalized (B, S, S, 3),
+        or None) spliced in (``models/mllm.py`` has the contract)."""
+        tcfg = self.cfg.text
+        embeds = (embed_and_splice(self.params, self.cfg, ids, image) if image is not None
+                  else embed(self.text_params, ids))
+        # HF left-padding convention: position ids count valid tokens
+        positions = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
+        cos, sin = rope_cos_sin(positions, tcfg.head_dim, tcfg.rope_theta)
+        valid = mask if host is None else host[1]
+        return embeds, cos, sin, valid.sum(1) - ids.shape[1]
+
+    def decode_rope(self, positions: torch.Tensor):
+        return rope_cos_sin(positions[:, None], self.cfg.text.head_dim, self.cfg.text.rope_theta)
+
+    def map_shape(self, image) -> Tuple[int, int]:
+        side = int(math.isqrt(self.cfg.num_image_tokens))
+        return side, side
+
+    def image_input(self, pixels: torch.Tensor) -> torch.Tensor:
+        return pixels
 
     def forward_logits(self, input_ids: torch.Tensor, pixel_values: torch.Tensor,
                        attention_mask: Optional[torch.Tensor] = None,
@@ -105,14 +116,8 @@ class LlavaModel:
         """One prefill: (last-position logits (B, vocab) f32, the extract
         rows: (B, H, T) for a layer, (L, B, H, T) for a sequence, or
         None)."""
-        if attention_mask is None:
-            attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
-                                        device=input_ids.device)
-        embeds = embed_and_splice(self.params, self.cfg, input_ids, pixel_values)
-        logits, _, row = llama_prefill(self.params["llama"], self.cfg.text, embeds,
-                                       attention_mask, max_seq=input_ids.shape[1],
-                                       extract_layer=extract_layer, use_flash=use_flash)
-        return logits, row
+        return self._forward_logits(input_ids, attention_mask, pixel_values,
+                                    extract_layer, use_flash)
 
     def generate_with_attention(
         self,
@@ -125,69 +130,13 @@ class LlavaModel:
         kv_quant: bool = False,
         use_flash: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Greedy decode. Returns (generated ids (B, max_new_tokens), maps):
-        (B, n, n) for one extract layer, (L, B, n, n) for a sequence of
-        layers (one accumulator each, in the spec's order), None when
-        ``extract_layer`` is None: the answer-only path that builds no
-        probabilities row. At ``max_new_tokens=0`` the maps are the
-        prefill's rows alone and no decode step runs.
-
-        ``kv_quant`` keeps the cache in int8, rounded up to a multiple of 64
-        slots as in JAX (the extra slots stay masked). ``use_flash`` runs
-        the prefill through kernel K2 (``llama_prefill``)."""
-        cfg, tcfg, params = self.cfg, self.cfg.text, self.params
-        B, T = input_ids.shape
-        max_seq = T + max_new_tokens
-        if kv_quant:
-            max_seq = -(-max_seq // 64) * 64
-        n_img = cfg.num_image_tokens
-        side = int(math.isqrt(n_img))
-        ones = torch.ones((B,), dtype=torch.float32, device=input_ids.device)
-
-        def acc(carry, row):
-            if carry is None:
-                return None
-            return accumulate_step(carry, row, img_start, ones, n_img)
-
-        embeds = embed_and_splice(params, cfg, input_ids, pixel_values)
-        # the cache comes from the pool, so the decode steps replay CUDA graphs
-        with leased_kv_cache(tcfg, B, max_seq, embeds.device,
-                             local_kv_heads(params["llama"], tcfg),
-                             None if kv_quant else embeds.dtype) as kv:
-            logits, kv, row0 = llama_prefill(
-                params["llama"], tcfg, embeds, attention_mask, max_seq=max_seq,
-                extract_layer=extract_layer, use_flash=use_flash, kv_quant=kv_quant,
-                cache=kv,
-            )
-            del embeds
-            carry = init_layer_carry(extract_layer, B, n_img, input_ids.device)
-            carry = acc(carry, row0)
-            tok = torch.argmax(logits, dim=-1)
-            finished = tok == cfg.eos_token_id
-            lengths = torch.sum(attention_mask.to(torch.int64), dim=1)
-            full_mask = F.pad(attention_mask, (0, max_seq - T))
-            toks = [tok.new_empty((B, 0))]
-            for step in range(max_new_tokens):
-                profiling.count("decode_steps")
-                with profiling.span("decode_step"):
-                    cur_len = T + step
-                    full_mask[:, cur_len] = True
-                    emb = embed(params["llama"], tok)[:, None, :]
-                    logits, kv, row = llama_decode_step(
-                        params["llama"], tcfg, emb, kv, cur_len, lengths + step,
-                        full_mask, extract_layer=extract_layer,
-                    )
-                    # every step's row counts, finished rows included (HF generate
-                    # keeps forwarding them; llava.py:384-411)
-                    carry = acc(carry, row)
-                    toks.append(tok[:, None])
-                    nxt = torch.argmax(logits, dim=-1)
-                    # finished rows continue with PAD, as HF generate does
-                    nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-                    finished = finished | (nxt == cfg.eos_token_id)
-                    tok = nxt
-        maps = None if carry is None else finalize(carry, side)
-        return torch.cat(toks, dim=1), maps
+        """Greedy decode (``MLLM._generate``). Returns (generated ids (B,
+        max_new_tokens), maps): (B, n, n) for one extract layer, (L, B, n,
+        n) for a sequence of layers, None when ``extract_layer`` is None.
+        Decode step s of row b is at rotary position ``lengths[b] + s``,
+        its count of valid prompt tokens plus s."""
+        return self._generate(input_ids, attention_mask, pixel_values, img_start,
+                              extract_layer, max_new_tokens, kv_quant, use_flash)
 
 
 def config_from_dict(d: Dict[str, Any]) -> LlavaConfig:

@@ -13,7 +13,8 @@ HF ``Qwen2VLForConditionalGeneration`` for one image per sample:
   prefill and decode step are ``models/llama.py``'s ``decoder_prefill`` and
   ``decoder_decode_step`` given M-RoPE's cos/sin, so the flash prefill runs
   kernel K2 and the int8-cache decode kernel K3, GQA by index, exactly as
-  LLaVA's do.
+  LLaVA's do. ``Qwen2VLModel`` fills in the family seam of
+  ``models/mllm.py``, whose generate loop it runs.
 
 ``patchify_image``, ``_vision_rot_pos`` and ``get_mrope_positions`` are
 numpy, copied from the JAX module (its package imports JAX) and pinned equal
@@ -37,7 +38,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from attwarp_tpu_torch.extract.accumulator import accumulate_step, finalize, init_layer_carry
 from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_
 from attwarp_tpu_torch.models.llama import (
     ExtractSpec,
@@ -45,10 +45,9 @@ from attwarp_tpu_torch.models.llama import (
     decoder_decode_step,
     decoder_prefill,
     embed,
-    leased_kv_cache,
-    local_kv_heads,
     rope_inv_freq,
 )
+from attwarp_tpu_torch.models.mllm import MLLM
 from attwarp_tpu_torch.numerics.quant import row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, split_group
 from attwarp_tpu_torch.utils import profiling
@@ -349,16 +348,16 @@ def embed_and_splice(params, cfg: Qwen2VLConfig, input_ids: torch.Tensor,
     return torch.where(is_img[..., None], img_at, emb)
 
 
-class Qwen2VLModel:
-    """Config plus parameter tree, with the generate loop."""
-
-    def __init__(self, cfg: Qwen2VLConfig, params: Dict[str, Any]):
-        self.cfg = cfg
-        self.params = params
+class Qwen2VLModel(MLLM):
+    """Config plus parameter tree: ``models/mllm.py``'s generate loop over
+    Qwen2-VL's seam. The image input is (patches, grid (t, h, w)); the
+    prompt's positions are M-RoPE's, and after the prompt all three streams
+    share the text position, so a row's rotary offset is its M-RoPE delta
+    (HF ``get_rope_index``); the map is the merged grid."""
 
     @property
-    def device(self) -> torch.device:
-        return self.params["text"]["embed_tokens"].device
+    def text_params(self) -> Dict[str, Any]:
+        return self.params["text"]
 
     @property
     def merge(self) -> int:
@@ -376,6 +375,36 @@ class Qwen2VLModel:
             return qwen2vl_vision_features(vis, self.cfg.vision, patches[None], hw)[0]
         return qwen2vl_vision_features(vis, self.cfg.vision, patches, hw)
 
+    def prompt(self, ids: torch.Tensor, mask: torch.Tensor, image, host):
+        """(embeddings, cos, sin, offset) of a left-padded prompt, the
+        tower's features of ``image`` ((patches, grid), or None) spliced in
+        (``models/mllm.py`` has the contract). The M-RoPE positions are
+        worked out on the host: without ``host`` the ids and mask are
+        fetched there, under the ``mrope_positions`` span."""
+        dev = ids.device
+        grid = (1, self.merge, self.merge) if image is None else image[1]
+        if host is None:
+            with profiling.span("mrope_positions"):   # the prompt's fetch to the host
+                pos, deltas = get_mrope_positions(ids.cpu().numpy(), mask.cpu().numpy(), grid,
+                                                  self.cfg.image_token_id, self.merge)
+            offset = torch.as_tensor(deltas, device=dev)
+        else:
+            pos, offset = get_mrope_positions(*host, grid, self.cfg.image_token_id, self.merge)
+        embeds = (embed_and_splice(self.params, self.cfg, ids, self.image_features(*image))
+                  if image is not None else embed(self.text_params, ids))
+        cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), self.cfg.text)
+        return embeds, cos, sin, offset
+
+    def decode_rope(self, positions: torch.Tensor):
+        return mrope_cos_sin(positions[None, :, None].expand(3, -1, 1), self.cfg.text)
+
+    def map_shape(self, image) -> Tuple[int, int]:
+        grid = image[1]
+        return grid[1] // self.merge, grid[2] // self.merge
+
+    def image_input(self, pixels: torch.Tensor):
+        return patchify_batch(pixels, self.cfg.vision)
+
     def forward_logits(self, input_ids: torch.Tensor, patches: torch.Tensor,
                        grid_thw: Tuple[int, int, int],
                        attention_mask: Optional[torch.Tensor] = None,
@@ -384,19 +413,8 @@ class Qwen2VLModel:
         one image shared by the batch: (last-position logits (B, vocab)
         f32, the extract rows: (B, H, T) for a layer, (L, B, H, T) for a
         sequence of layers, or None)."""
-        if attention_mask is None:
-            attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
-                                        device=input_ids.device)
-        dev = input_ids.device
-        embeds = embed_and_splice(self.params, self.cfg, input_ids,
-                                  self.image_features(patches, grid_thw))
-        pos, _ = get_mrope_positions(input_ids.cpu().numpy(), attention_mask.cpu().numpy(),
-                                     grid_thw, self.cfg.image_token_id, self.merge)
-        cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), self.cfg.text)
-        logits, _, row = qwen2vl_prefill(self.params["text"], self.cfg.text, embeds,
-                                         attention_mask, cos, sin, max_seq=input_ids.shape[1],
-                                         extract_layer=extract_layer, use_flash=use_flash)
-        return logits, row
+        return self._forward_logits(input_ids, attention_mask, (patches, grid_thw),
+                                    extract_layer, use_flash)
 
     def generate_with_attention(
         self,
@@ -409,80 +427,16 @@ class Qwen2VLModel:
         kv_quant: bool = False,
         use_flash: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Greedy decode. Returns (generated ids (B, max_new_tokens), maps):
-        (B, gh/M, gw/M) for one extract layer, (L, B, gh/M, gw/M) for a
-        sequence of layers (in its order), None when ``extract_layer`` is
-        None: the answer-only path that builds no probabilities row.
-        ``patches`` of shape (N, C*T*P*P) is one image shared by the whole
-        batch: the vision tower runs once. At ``max_new_tokens=0`` the maps
-        are the prefill's rows alone and no decode step runs.
-
-        As JAX's scan: every step's row counts (``active`` all ones), the
-        decode position is ``T + rope_delta + step`` on all three M-RoPE
-        streams, and finished rows continue with the pad token. ``kv_quant``
-        keeps the cache in int8, rounded up to a multiple of 64 slots (the
-        extra slots stay masked); ``use_flash`` runs the prefill through K2."""
-        cfg, tcfg, params = self.cfg, self.cfg.text, self.params
-        dev = input_ids.device
-        B, T = input_ids.shape
-        max_seq = T + max_new_tokens
-        if kv_quant:
-            max_seq = -(-max_seq // 64) * 64
-        M = self.merge
-        side_h, side_w = grid_thw[1] // M, grid_thw[2] // M
-        n_img = side_h * side_w
-        with profiling.span("mrope_positions"):   # the prompt's fetch to the host
-            ids_np = input_ids.cpu().numpy()
-            pos, deltas = get_mrope_positions(
-                ids_np, attention_mask.cpu().numpy(), grid_thw, cfg.image_token_id, M)
-        img_start = torch.as_tensor(
-            np.argmax(ids_np == cfg.image_token_id, axis=1), device=dev)
-        deltas = torch.as_tensor(deltas, device=dev)
-        ones = torch.ones((B,), dtype=torch.float32, device=dev)
-
-        def acc(carry, row):
-            if carry is None:
-                return None
-            return accumulate_step(carry, row, img_start, ones, n_img)
-
-        embeds = embed_and_splice(params, cfg, input_ids, self.image_features(patches, grid_thw))
-        cos, sin = mrope_cos_sin(torch.as_tensor(pos, device=dev), tcfg)
-        # the cache comes from the pool, so the decode steps replay CUDA graphs
-        with leased_kv_cache(tcfg, B, max_seq, dev, local_kv_heads(params["text"], tcfg),
-                             None if kv_quant else embeds.dtype) as kv:
-            logits, kv, row0 = qwen2vl_prefill(
-                params["text"], tcfg, embeds, attention_mask, cos, sin,
-                max_seq=max_seq, extract_layer=extract_layer, kv_quant=kv_quant,
-                use_flash=use_flash, cache=kv,
-            )
-            del embeds, cos, sin
-            carry = acc(init_layer_carry(extract_layer, B, n_img, dev), row0)
-            tok = torch.argmax(logits, dim=-1)
-            finished = tok == cfg.eos_token_id
-            full_mask = F.pad(attention_mask, (0, max_seq - T))
-            toks = [tok.new_empty((B, 0))]
-            for step in range(max_new_tokens):
-                profiling.count("decode_steps")
-                with profiling.span("decode_step"):
-                    cur_len = T + step
-                    full_mask[:, cur_len] = True
-                    # all three M-RoPE streams share the text position after the prompt
-                    p = T + deltas + step                                  # (B,)
-                    cos1, sin1 = mrope_cos_sin(p[None, :, None].expand(3, B, 1), tcfg)
-                    emb = embed(params["text"], tok)[:, None, :]
-                    logits, kv, row = qwen2vl_decode_step(
-                        params["text"], tcfg, emb, kv, cur_len, cos1, sin1, full_mask,
-                        extract_layer=extract_layer,
-                    )
-                    carry = acc(carry, row)
-                    toks.append(tok[:, None])
-                    nxt = torch.argmax(logits, dim=-1)
-                    # finished rows continue with PAD, as HF generate does
-                    nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-                    finished = finished | (nxt == cfg.eos_token_id)
-                    tok = nxt
-        maps = None if carry is None else finalize(carry, side_h, side_w)
-        return torch.cat(toks, dim=1), maps
+        """Greedy decode (``MLLM._generate``). Returns (generated ids (B,
+        max_new_tokens), maps): (B, gh/M, gw/M) for one extract layer, (L,
+        B, gh/M, gw/M) for a sequence of layers, None when
+        ``extract_layer`` is None. ``patches`` of shape (N, C*T*P*P) is one
+        image shared by the whole batch: the vision tower runs once. As
+        JAX's scan, decode step s is at position ``T + rope_delta + s`` on
+        all three M-RoPE streams."""
+        img_start = (input_ids == self.cfg.image_token_id).to(torch.int32).argmax(dim=1)
+        return self._generate(input_ids, attention_mask, (patches, grid_thw), img_start,
+                              extract_layer, max_new_tokens, kv_quant, use_flash)
 
 
 def port_hf_qwen2vl_weights(state_dict: Dict[str, torch.Tensor], cfg: Qwen2VLConfig,

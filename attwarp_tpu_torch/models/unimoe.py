@@ -67,11 +67,11 @@ def unimoe_vision_features(params: Dict[str, Any], cfg: UniMoEConfig,
 
 
 class UniMoEModel(Qwen2VLModel):
-    """Config plus parameter tree, with Qwen2-VL's generate loop. The tree
-    is ``{"vision": SigLIP tower, "aligner": {"weight", "bias"}, "text":
-    Qwen2-VL's decoder with a ``"moe"`` tree a layer in place of the MLP}``;
-    building the model sets each router to float32 and attaches ``tally``,
-    in place."""
+    """Config plus parameter tree, with Qwen2-VL's seam (``models/mllm.py``)
+    over this tower. The tree is ``{"vision": SigLIP tower, "aligner":
+    {"weight", "bias"}, "text": Qwen2-VL's decoder with a ``"moe"`` tree a
+    layer in place of the MLP}``; building the model sets each router to
+    float32 and attaches ``tally``, in place."""
 
     def __init__(self, cfg: UniMoEConfig, params: Dict[str, Any]):
         super().__init__(cfg, params)
@@ -91,6 +91,11 @@ class UniMoEModel(Qwen2VLModel):
         if pixels.ndim == 3:
             return unimoe_vision_features(self.params, self.cfg, pixels[None])[0]
         return unimoe_vision_features(self.params, self.cfg, pixels)
+
+    def image_input(self, pixels: torch.Tensor):
+        """The tower takes the pixels themselves; the grid is the patches'."""
+        n = pixels.shape[-2] // self.cfg.vision.patch_size
+        return pixels, (1, n, n)
 
 
 def random_params(cfg: UniMoEConfig, generator: torch.Generator, device,

@@ -152,7 +152,7 @@ class ChunkedPrefillEngine(ServeEngine):
             self._admitting.popleft()
         return a, dst, n
 
-    def _fused_step(self, tokens, cur, starts, deltas, rows, chunk):
+    def _fused_step(self, tokens, cur, starts, offsets, rows, chunk):
         """One decode step of every slot (when ``rows``, the active slots,
         is given) and one prompt chunk (when ``chunk`` is given), sharing
         the projections and MLP. Returns (decode logits (B, vocab) or None,
@@ -163,7 +163,7 @@ class ChunkedPrefillEngine(ServeEngine):
         B = 0 if rows is None else tokens.shape[0]
         parts = []
         if B:
-            cos, sin = self._decode_rope(cur, starts, deltas)
+            cos, sin = self.model.decode_rope(cur + offsets)
             mask = self._slot_mask(cur, starts)
             at = (rows, cur[rows])
             parts.append(embed(p, tokens))
@@ -225,7 +225,7 @@ class ChunkedPrefillEngine(ServeEngine):
             K, B = self.steps_per_tick, self.slots
             active = [b for b, s in enumerate(self._slots) if s.active]
             rows = torch.as_tensor(active, device=self.device) if active else None
-            tokens, cur, starts, deltas = self._slot_tensors()
+            tokens, cur, starts, offsets = self._slot_tensors()
             steps, firsts = [], []
             for _ in range(K):
                 chunk = self._next_chunk()
@@ -234,7 +234,7 @@ class ChunkedPrefillEngine(ServeEngine):
                 if rows is not None:
                     profiling.count("decode_steps")
                 with profiling.span("decode_step"):
-                    logits, flogits = self._fused_step(tokens, cur, starts, deltas, rows, chunk)
+                    logits, flogits = self._fused_step(tokens, cur, starts, offsets, rows, chunk)
                     if rows is not None:
                         tokens = sample_tokens(logits, self.temps, self._gens, self.top_k)
                         cur = cur + 1

@@ -3,8 +3,8 @@
 
 A fixed pool of ``slots`` decodes in lock-step while requests stream in and
 out: a finished slot is refilled from the queue on the next tick, so short
-answers never hold up long ones. Both model families serve: LLaVA-1.5 and
-Qwen2-VL (M-RoPE, per-request position deltas).
+answers never hold up long ones. The engine knows a model family only
+through its seam (``models/mllm.py``): LLaVA-1.5 and Qwen2-VL both serve.
 
 - **Slot cache**: one ``(L, slots, max_seq, kvH, hd)`` KV cache, dense or
   int8 (``kv_quant``), leased from the pool (``models/llama.py::
@@ -13,7 +13,7 @@ Qwen2-VL (M-RoPE, per-request position deltas).
   over it (``models/decode_graph.py``). Each prompt is left-padded inside its 64-token
   bucket: cache positions ``[0, start)`` hold masked padding,
   ``[start, cur_len)`` the prompt, and the rotary position of a new token
-  is ``cur_len - start`` (plus the request's M-RoPE delta for Qwen2-VL).
+  is ``cur_len + offset``, the request's offset from the model's prompt.
 - **Admission**: queued requests are batched by (bucket, pixel shape) in
   power-of-two groups (``admit_batch`` while slots decode, the wider
   ``admit_batch_cold`` while the pool is idle) and prefilled together,
@@ -51,7 +51,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from attwarp_tpu_torch.models import llava, qwen2vl
 from attwarp_tpu_torch.models.llama import (
     decoder_decode_step,
     decoder_prefill,
@@ -59,7 +58,6 @@ from attwarp_tpu_torch.models.llama import (
     lease_kv_cache,
     local_kv_heads,
     release_kv_cache,
-    rope_cos_sin,
 )
 from attwarp_tpu_torch.models.moe import refuse_experts
 from attwarp_tpu_torch.utils import profiling
@@ -100,8 +98,8 @@ def sample_tokens(logits: torch.Tensor, temps: np.ndarray, gens: List,
 
 
 class ServeEngine:
-    """Continuous-batching engine over a ``LlavaModel`` or ``Qwen2VLModel``
-    on the model's device.
+    """Continuous-batching engine over a model of any family
+    (``models/mllm.py::MLLM``) on the model's device.
 
     >>> eng = ServeEngine(model, slots=8, max_seq=768, kv_quant=True)
     >>> eng.submit(ids, pixels, max_new_tokens=32)   # any number of times
@@ -139,9 +137,7 @@ class ServeEngine:
         self.admit_batch_cold = max(
             self.admit_batch,
             min(slots, 8) if admit_batch_cold == 0 else admit_batch_cold)
-        self.family = ("qwen2vl" if hasattr(model.cfg, "vision_start_token_id")
-                       else "llava")
-        self.text_params = model.params["text" if self.family == "qwen2vl" else "llama"]
+        self.text_params = model.text_params
         # an expert model's prompts, positions and the chunked engine's
         # fused step (one FFN call over decode rows and a padded chunk) are
         # not built for it
@@ -164,7 +160,7 @@ class ServeEngine:
         self.tokens = np.zeros((slots,), np.int64)
         self.cur_lens = np.zeros((slots,), np.int64)
         self.starts = np.zeros((slots,), np.int64)
-        self.deltas = np.zeros((slots,), np.int64)    # Qwen2-VL M-RoPE deltas
+        self.offsets = np.zeros((slots,), np.int64)   # rotary position - cache slot
         self.top_k = top_k
         self.seed = seed
         self.temps = np.zeros((slots,), np.float32)
@@ -317,17 +313,14 @@ class ServeEngine:
 
     def _embed_group(self, Tb: int, with_image: bool, chunk):
         """Left-pad ``chunk`` = [(slot, request), ...] (one bucket, one
-        pixel shape) into its bucket and embed it: the vision tower runs once
-        over the group's images and its features replace the image tokens.
-        Sets each slot's next write position (``Tb``), pad offset and, for
-        Qwen2-VL, its M-RoPE decode delta re-based from the padded to the
-        valid length. Returns embeds (n, Tb, D), mask (n, Tb) bool and the
-        rotary cos/sin (n, Tb, hd) of every position (LLaMA: valid-token
-        counts; Qwen2-VL: M-RoPE over the group's shared grid), on the
-        prefill model's device."""
+        pixel shape) into its bucket and embed it through the prefill
+        model's ``prompt``: the vision tower runs once over the group's
+        images and its features replace the image tokens. Sets each slot's
+        next write position (``Tb``), pad offset and rotary offset. Returns
+        embeds (n, Tb, D), mask (n, Tb) bool and the rotary cos/sin (n, Tb,
+        hd) of every position, on the prefill model's device."""
         model = self.prefill_model
-        cfg, dev = self.cfg, model.device
-        text = model.params["text" if self.family == "qwen2vl" else "llama"]
+        dev = model.device
         n = len(chunk)
         ids_np = np.zeros((n, Tb), np.int64)
         mask_np = np.zeros((n, Tb), bool)
@@ -341,39 +334,20 @@ class ServeEngine:
             profiling.count("prefill_tokens", int(mask_np.sum()))
         ids = torch.as_tensor(ids_np, device=dev)
         mask = torch.as_tensor(mask_np, device=dev)
-        pixels = (torch.as_tensor(np.stack([r.pixel_values for _, r in chunk]), device=dev)
-                  if with_image else None)
-        if self.family == "llava":
-            embeds = (llava.embed_and_splice(model.params, cfg, ids, pixels)
-                      if with_image else embed(text, ids))
-            positions = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
-            cos, sin = rope_cos_sin(positions, self.tcfg.head_dim, self.tcfg.rope_theta)
-            return embeds, mask, cos, sin
-        grid = None
-        if with_image:
-            patches, grid = qwen2vl.patchify_batch(pixels, cfg.vision)
-            feats = qwen2vl.qwen2vl_vision_features(
-                model.params["vision"], cfg.vision, patches, grid[1:])
-            embeds = qwen2vl.embed_and_splice(model.params, cfg, ids, feats)
-        else:
-            embeds = embed(text, ids)
-        pos, deltas = qwen2vl.get_mrope_positions(
-            ids_np, mask_np.astype(np.int64), grid or (1, 2, 2),
-            cfg.image_token_id, cfg.vision.spatial_merge_size)
-        for j, (b, req) in enumerate(chunk):
-            self.deltas[b] = int(deltas[j]) + (Tb - len(req.input_ids))
-        cos, sin = qwen2vl.mrope_cos_sin(torch.as_tensor(pos, device=dev), self.tcfg)
+        image = (model.image_input(torch.as_tensor(
+            np.stack([r.pixel_values for _, r in chunk]), device=dev)) if with_image else None)
+        embeds, cos, sin, offset = model.prompt(ids, mask, image, (ids_np, mask_np))
+        for j, (b, _) in enumerate(chunk):
+            self.offsets[b] = offset[j]
         return embeds, mask, cos, sin
 
     def _prefill_group(self, Tb: int, with_image: bool, chunk) -> None:
         """One batched prefill (kernel K2 with ``use_flash`` where JAX's gate
-        allows) on the prefill model and one grouped insert for ``chunk``,
-        either family."""
+        allows) on the prefill model and one grouped insert for ``chunk``."""
         with profiling.span("serve.prefill_group", n=len(chunk), Tb=Tb):
             embeds, mask, cos, sin = self._embed_group(Tb, with_image, chunk)
-            text = self.prefill_model.params["text" if self.family == "qwen2vl" else "llama"]
             logits, block, _ = decoder_prefill(
-                text, self.tcfg, embeds, mask, cos, sin, max_seq=Tb,
+                self.prefill_model.text_params, self.tcfg, embeds, mask, cos, sin, max_seq=Tb,
                 use_flash=self.use_flash, kv_quant=self.kv_quant)
             firsts = torch.argmax(logits, dim=-1)
             if self.prefill_model is not self.model:
@@ -419,20 +393,9 @@ class ServeEngine:
     # ── decode ─────────────────────────────────────────────────────────
     def _slot_tensors(self):
         """The host slot state on the device: tokens, cur_lens, starts,
-        deltas (all (slots,) long)."""
+        offsets (all (slots,) long)."""
         return tuple(torch.as_tensor(a, device=self.device)
-                     for a in (self.tokens, self.cur_lens, self.starts, self.deltas))
-
-    def _decode_rope(self, cur, starts, deltas):
-        """Rotary cos/sin (B, 1, hd) of each slot's new token: position
-        ``cur - start`` (LLaMA), or that plus the request's delta on all
-        three M-RoPE streams (Qwen2-VL, HF ``get_rope_index`` after the
-        prompt)."""
-        if self.family == "qwen2vl":
-            p = cur - starts + deltas
-            return qwen2vl.mrope_cos_sin(p[None, :, None].expand(3, -1, 1), self.tcfg)
-        return rope_cos_sin((cur - starts)[:, None], self.tcfg.head_dim,
-                            self.tcfg.rope_theta)
+                     for a in (self.tokens, self.cur_lens, self.starts, self.offsets))
 
     def _slot_mask(self, cur, starts) -> torch.Tensor:
         """(B, max_seq): slot b attends [starts[b], cur[b]], the token
@@ -440,9 +403,9 @@ class ServeEngine:
         ar = self._positions[None, :]
         return (ar >= starts[:, None]) & (ar <= cur[:, None])
 
-    def _decode_step(self, tokens, cur, starts, deltas) -> torch.Tensor:
+    def _decode_step(self, tokens, cur, starts, offsets) -> torch.Tensor:
         """Every slot one token; returns the f32 logits (B, vocab)."""
-        cos, sin = self._decode_rope(cur, starts, deltas)
+        cos, sin = self.model.decode_rope(cur + offsets)
         emb = embed(self.text_params, tokens)[:, None, :]
         logits, _, _ = decoder_decode_step(self.text_params, self.tcfg, emb, self.kv,
                                            cur, cos, sin, self._slot_mask(cur, starts))
@@ -451,12 +414,12 @@ class ServeEngine:
     def _tick(self):
         with profiling.span("serve.tick"):
             K, B = self.steps_per_tick, self.slots
-            tokens, cur, starts, deltas = self._slot_tensors()
+            tokens, cur, starts, offsets = self._slot_tensors()
             steps = []
             for _ in range(K):
                 profiling.count("decode_steps")
                 with profiling.span("decode_step"):
-                    logits = self._decode_step(tokens, cur, starts, deltas)
+                    logits = self._decode_step(tokens, cur, starts, offsets)
                     tokens = sample_tokens(logits, self.temps, self._gens, self.top_k)
                     cur = cur + 1
                     steps.append(tokens)
@@ -508,7 +471,7 @@ class ServeEngine:
         slot.rid = -1
         self.cur_lens[b] = 0
         self.starts[b] = 0
-        self.deltas[b] = 0
+        self.offsets[b] = 0
         self.temps[b] = 0.0
         self.tokens[b] = 0
         self._gens[b] = None

@@ -170,7 +170,7 @@ def main(argv=None) -> int:
     qwen = args.family == "qwen"
     make = make_qwen2vl_7b_backend if qwen else make_llava_7b_backend
     backend, _ = make("int8+kv8", device=device)
-    text = backend.model.params["text" if qwen else "llama"]
+    text = backend.model.text_params
     B = args.batch or (64 if qwen else 32)
     res = {"family": args.family, **run(text, backend.model.cfg.text, qwen, B, args.steps,
                                         device=device)}

@@ -178,7 +178,6 @@ def test_qwen_engine_matches_jax_and_generate(qwen, kv_quant, steps_per_tick):
             for T, side in ((12, 56), (15, 84), (10, 56), (11, None), (17, 84))]
     got_j, got_t, eng = serve_both(jm, tm, reqs, 4, slots=2, max_seq=96, bucket=16,
                                    kv_quant=kv_quant, steps_per_tick=steps_per_tick)
-    assert eng.family == "qwen2vl"
     assert got_t == got_j
     for (ids, px), toks in zip(reqs, got_t):
         assert toks == reference_tokens(tm, ids, px, 4, kv_quant)
