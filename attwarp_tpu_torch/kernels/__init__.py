@@ -11,6 +11,10 @@
 - ``attn_softmax``: K4, the scaled row softmax between a vision tower's two
   attention products, in place (``csrc/attn_softmax.cu``; replaces no TPU
   kernel: the JAX towers' softmax is plain einsum code).
+- ``rope_append``: K5, the decode step's new token: the rotary on q and k,
+  the int8 quantization of k and v and their cache write
+  (``csrc/rope_append_int8.cu``; replaces no TPU kernel: the JAX rotary and
+  ``quantize_kv`` are plain jnp code).
 
 Each wrapper runs its kernel's plain PyTorch version on CPU tensors and
 launches the kernel (or raises) on CUDA tensors; ``<wrapper>.launches``

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "attwarp_flash_prefill": [_VOID] * 5 + [_INT] * 5 + [ctypes.c_float, _VOID],
     # x, rows, L, elem_bytes, scale, stream
     "attwarp_attn_softmax": [_VOID, ctypes.c_longlong, _INT, _INT, ctypes.c_float, _VOID],
+    # q, k, v, cos, sin, q_out, k_q, k_s, v_q, v_s, pos, pos0, L, B, S, H,
+    # kvH, hd, layer, elem_bytes, stream
+    "attwarp_rope_append_int8": [_VOID] * 11 + [ctypes.c_longlong] + [_INT] * 8 + [_VOID],
 }
 
 

@@ -1,10 +1,11 @@
 """The decode step replayed from CUDA graphs, and the pool of KV caches it
 needs.
 
-A decode step is ~1000 small eager operations; dispatching them from the
-host takes several times the ~11 ms the card needs for them at the
-pipeline's widths. ``DecodeGraphs`` captures the step's work between its
-attention calls as CUDA graphs, once per key, and replays them: one step
+A decode step is ~30 kernels a decoder layer (~1,000 at LLaVA-1.5-7B's
+32), most of them small; dispatching them from the host takes several
+times the ~11 ms the card needs for them at the pipeline's widths.
+``DecodeGraphs`` captures the step's work between its attention calls as
+CUDA graphs, once per key, and replays them: one step
 is then a copy of its inputs into static buffers, then for each segment a
 replay, followed by the attention of the layer that ends it. That
 attention runs eagerly (kernel K3 on an int8 cache, through
@@ -44,13 +45,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from attwarp_tpu_torch.kernels.rope_append import rope_append_int8
 from attwarp_tpu_torch.numerics.quant import int8_matmul
 from attwarp_tpu_torch.utils import profiling
 
 # Python launch counters that code inside a segment bumps: a capture runs
 # that code once without launching anything, so the capture's increments
 # are taken back and each replay adds them
-REPLAYED_COUNTERS = ((int8_matmul, "launches"), (int8_matmul, "padded"))
+REPLAYED_COUNTERS = ((int8_matmul, "launches"), (int8_matmul, "padded"),
+                     (rope_append_int8, "launches"))
 
 
 def tree_tensors(tree: Any, out: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
@@ -91,7 +94,7 @@ class DecodeGraphs:
         """Capture one graph per segment over static copies of the step's
         inputs, all in one memory pool, and keep every tensor a graph reads
         or writes alive with the graphs (their addresses are in them).
-        ``segment(lo, hi, x, attn, at, cos, sin, kv_mask)`` runs the work
+        ``segment(lo, hi, x, attn, pos, cos, sin, kv_mask)`` runs the work
         from after layer ``lo``'s attention to layer ``hi``'s (``lo`` -1:
         from the embeddings, ``hi`` the layer count: to the logits) and
         returns (x, q or logits, rows); ``attend(layer, q, kv_mask, out)``
@@ -106,7 +109,6 @@ class DecodeGraphs:
         self.mask = torch.empty_like(kv_mask)
         self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.attn = torch.zeros((B, 1, attn_width), dtype=token_embeds.dtype, device=dev)
-        self.at = (torch.arange(B, device=dev), self.pos)
         before = [getattr(obj, name) for obj, name in REPLAYED_COUNTERS]
         pool = torch.cuda.graph_pool_handle()
         graphs, outs = [], []
@@ -120,7 +122,7 @@ class DecodeGraphs:
                     g = torch.cuda.CUDAGraph()
                     g.capture_begin(pool=pool, capture_error_mode="thread_local")
                     try:
-                        x, out, rows = segment(lo, hi, x, self.attn, self.at, self.cos,
+                        x, out, rows = segment(lo, hi, x, self.attn, self.pos, self.cos,
                                                self.sin, self.mask)
                     finally:
                         g.capture_end()

@@ -19,7 +19,9 @@ a dense or an int8 (``+kv8``) cache, at one position shared by the batch or
 at each row's own position (the serving slots). With the int8 cache every
 layer that ``extract_layer`` does not list reads the cache through kernel
 K3 (``kernels/decode_attn.py``); a listed layer keeps the plain
-``_attn_quantcache`` form because it needs the probabilities row.
+``_attn_quantcache`` form because it needs the probabilities row. On the
+card every layer writes the new token into an int8 cache through kernel K5
+(``kernels/rope_append.py``: the rotary, the quantization and the write).
 ``extract_layer`` is None, a layer or a sequence of layers
 (``extract_layers_tuple``), whose rows come back stacked in its order.
 
@@ -60,6 +62,7 @@ import torch.nn.functional as F
 
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill
+from attwarp_tpu_torch.kernels.rope_append import rope_append_int8
 from attwarp_tpu_torch.models import decode_graph, moe
 from attwarp_tpu_torch.numerics.quant import apply_linear, lm_logits, quantize_kv, row_linear
 from attwarp_tpu_torch.parallel.comm import all_gather, all_reduce, split_group
@@ -460,6 +463,16 @@ def llama_prefill(
                            max_seq, extract_layer, use_flash, kv_quant, cache)
 
 
+def every_row_at(pos):
+    """``append_token``'s index pair for every row at ``pos``: one int for
+    the batch, or a (B,) long tensor of each row's own position (one
+    advanced-index write per cache tensor, the counterpart of JAX's
+    serving/engine.py::_upd_slot)."""
+    if isinstance(pos, int):
+        return slice(None), pos
+    return torch.arange(pos.shape[0], device=pos.device), pos
+
+
 def append_token(kv, layer: int, at, k1: torch.Tensor, v1: torch.Tensor) -> None:
     """Write new keys and values ``(n, kvH, hd)`` into ``layer`` of the
     cache IN PLACE at ``at`` = (batch rows, positions), an index pair such
@@ -490,15 +503,21 @@ def attend_cache(kv, layer: int, q: torch.Tensor, kv_mask: torch.Tensor,
     return attn if out is None else out.copy_(attn)
 
 
-def _pre_attention(lp, cfg, x, cos, sin, kv, layer: int, at) -> torch.Tensor:
-    """A layer's input norm, q/k/v projections and rotary, with the new
-    token's K/V written into the cache at ``at``; returns q (B, 1, H, hd)."""
+def _pre_attention(lp, cfg, x, cos, sin, kv, layer: int, pos) -> torch.Tensor:
+    """A layer's input norm, q/k/v projections and rotary, with every row's
+    new K/V written into the cache at ``pos`` (one int for the batch, or a
+    (B,) long tensor of the rows' positions); returns q (B, 1, H, hd). On an
+    int8 cache on the card the rotary and the write are one launch of
+    kernel K5 (its plain version, ``apply_rope`` then ``append_token``, on
+    the CPU)."""
+    if isinstance(kv, QuantKVCache):
+        return rope_append_int8(*layer_project(lp, cfg, x), cos, sin, kv, layer, pos)
     q, k1, v1 = _qkv(lp, cfg, x, cos, sin)
-    append_token(kv, layer, at, k1[:, 0], v1[:, 0])
+    append_token(kv, layer, every_row_at(pos), k1[:, 0], v1[:, 0])
     return q
 
 
-def decode_segment(params, cfg, kv, lo: int, hi: int, x, attn, at, cos, sin, kv_mask):
+def decode_segment(params, cfg, kv, lo: int, hi: int, x, attn, pos, cos, sin, kv_mask):
     """The part of a decode step between the attention of layer ``lo`` and
     that of layer ``hi``, two layers that ``extract_layer`` does not list:
     ``lo``'s o_proj and MLP residuals (``lo`` = -1: none, ``x`` is the
@@ -506,14 +525,16 @@ def decode_segment(params, cfg, kv, lo: int, hi: int, x, attn, at, cos, sin, kv_
     probabilities row through the plain ``_attn_quantcache`` or ``_attn``),
     and ``hi``'s work before its attention (``hi`` = the layer count: the
     final norm and the LM head instead). Returns (x, ``hi``'s q or the f32
-    logits (B, vocab), {listed layer: row}). The eager step and the graphs
-    of ``models/decode_graph.py`` both run the step as these segments."""
+    logits (B, vocab), {listed layer: row}). Every row's new token is
+    written at ``pos``, as ``_pre_attention`` takes it. The eager step and
+    the graphs of ``models/decode_graph.py`` both run the step as these
+    segments."""
     layers = params["layers"]
     rows = {}
     if lo >= 0:
         x = layer_residuals(layers[lo], cfg, x, attn)
     for i in range(lo + 1, hi):
-        q = _pre_attention(layers[i], cfg, x, cos, sin, kv, i, at)
+        q = _pre_attention(layers[i], cfg, x, cos, sin, kv, i, pos)
         if isinstance(kv, QuantKVCache):
             a, rows[i] = _attn_quantcache(
                 q, kv.k_q[i], kv.k_s[i], kv.v_q[i], kv.v_s[i],
@@ -524,7 +545,7 @@ def decode_segment(params, cfg, kv, lo: int, hi: int, x, attn, at, cos, sin, kv_
         x = layer_residuals(layers[i], cfg, x, a)
     if hi == len(layers):
         return x, final_logits(params, cfg, x[:, 0]), rows
-    return x, _pre_attention(layers[hi], cfg, x, cos, sin, kv, hi, at), rows
+    return x, _pre_attention(layers[hi], cfg, x, cos, sin, kv, hi, pos), rows
 
 
 def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
@@ -556,13 +577,10 @@ def decoder_decode_step(params, cfg, token_embeds, kv, cur_len, cos, sin,
         logits, rows = graphs.replay(token_embeds, cur_len, cos, sin, kv_mask)
         return logits, kv, _stack_rows(rows, extract_layer, params)
     profiling.count("decode_graph.eager")
-    # one advanced-index write per cache tensor for per-slot positions (the
-    # counterpart of JAX's serving/engine.py::_upd_slot)
-    at = ((slice(None), cur_len) if isinstance(cur_len, int) else
-          (torch.arange(token_embeds.shape[0], device=token_embeds.device), cur_len))
     x, attn, rows, lo = token_embeds, None, {}, -1
     for hi in ends:
-        x, out, r = decode_segment(params, cfg, kv, lo, hi, x, attn, at, cos, sin, kv_mask)
+        x, out, r = decode_segment(params, cfg, kv, lo, hi, x, attn, cur_len, cos, sin,
+                                   kv_mask)
         rows.update(r)
         if hi < L:
             attn = attend_cache(kv, hi, out, kv_mask, cfg)

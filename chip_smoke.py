@@ -34,6 +34,12 @@ NVIDIA GPU.
    of 8 CLIP ViT-L/14-336 (577 tokens) and SigLIP-so400m (729) images:
    within one bf16 ulp, rows summing to 1. Steps 6, 7, 13b and 13c count
    its launches: one a tower block (and image, in Qwen2-VL) a pass.
+5c. Kernel K5 (the decode step's new token: rotary, int8 quantization and
+   cache write) against its plain version, the eager sequence it replaced,
+   bit for bit at LLaVA-1.5-7B's and Qwen2-VL-7B's decode step (B=8; 32/32
+   and 28/4 heads) and at the serve engine's 16 slots with per-slot
+   positions. Steps 6, 7, 8 (``ServeEngine``), 13b and 13c count its
+   launches: one a decoder layer a decode step.
 6. The two-pass AttWarp pipeline once at LLaVA-1.5-7B width with random
    bf16 weights: int8 KV cache, 4 images of 480x640, 20 new tokens per
    pass, 500 px warp. One warm-up run, then one timed run whose kernel
@@ -224,10 +230,10 @@ NVIDIA GPU.
     per-sample copies of it (tokens equal, maps cos > 0.9999). Step 17's
     wall is printed.
 
-The run's order: 1-5, 5b, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 17a, 17c,
+The run's order: 1-5, 5b, 5c, 6, 8 (LLaVA), 10, 11, 12, 14a, 14b, 14d, 17a, 17c,
 13a, 13b, 7, 8 (Qwen), 14c, 17b, 13c, 9, 13d, 15, 16.
 
-Steps 3-5b time each kernel at its main-path shapes with L2 flushed before
+Steps 3-5c time each kernel at its main-path shapes with L2 flushed before
 every call, as a prefill or a decode step finds its layer's tensors cold in
 HBM (the time with L2 warm is reported beside it as ``warm_ms``), beside
 its plain version, the least time the card could take
@@ -237,8 +243,8 @@ PyTorch call computing the same function where there is one:
 ``F.grid_sample`` for K1 and its backward for K1's backward (timed with L2
 warm too, ``library_warm_ms``) and
 ``F.scaled_dot_product_attention`` (fastest backend that takes a bool
-mask) for K2, each checked to agree with the plain version; none for K3
-and K4.
+mask) for K2, each checked to agree with the plain version; none for K3,
+K4 and K5.
 
 Run from the repo root:  python3 chip_smoke.py
 Exits non-zero on any failure and when no CUDA device is present. The last
@@ -941,6 +947,65 @@ def phase_k4(dev):
     return out
 
 
+def phase_k5(dev):
+    """K5 at the decode step's widths: its rotated q and every cache tensor
+    equal to its plain version's (the eager sequence it replaced) bit for
+    bit; its time beside the plain version's and the bound, L2 flushed
+    before every call and warm (a step's projections are fresh in L2)."""
+    import torch
+
+    from attwarp_tpu_torch.kernels.rope_append import rope_append_int8, rope_append_int8_plain
+    from attwarp_tpu_torch.models.llama import QuantKVCache, rope_cos_sin
+
+    out = {}
+    hd = 128
+    for name, (L, B, S, H, kvH, per_slot) in (("llava7b", (32, 8, 704, 32, 32, False)),
+                                             ("qwen7b", (28, 8, 704, 28, 4, False)),
+                                             ("llava7b_serve", (32, 16, 768, 32, 32, True))):
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def cache():
+            values = (L, B, S, kvH, hd)
+            return QuantKVCache(
+                torch.zeros(values, dtype=torch.int8, device=dev),
+                torch.zeros(values[:-1], device=dev),
+                torch.zeros(values, dtype=torch.int8, device=dev),
+                torch.zeros(values[:-1], device=dev))
+        q, k, v = ((torch.randn((B, 1, n * hd), generator=g, device=dev) * 3.0)
+                   .to(torch.bfloat16) for n in (H, kvH, kvH))
+        pos = (torch.randint(S // 2, S, (B,), generator=g, device=dev) if per_slot
+               else S - 40)
+        cur = pos if per_slot else torch.full((B,), pos, device=dev)
+        # rotary positions below the cache positions by each row's left padding
+        cos, sin = rope_cos_sin((cur - torch.arange(B, device=dev) * 37 % 64)[:, None], hd,
+                                10000.0)
+        kv, ref = cache(), cache()
+        fns = {"plain": lambda: rope_append_int8_plain(q, k, v, cos, sin, ref, L - 1, pos),
+               "kernel": lambda: rope_append_int8(q, k, v, cos, sin, kv, L - 1, pos)}
+        ref_q, got_q = fns["plain"](), fns["kernel"]()
+        torch.cuda.synchronize()
+        same = torch.equal(got_q, ref_q) and all(map(torch.equal, kv, ref))
+        t = alternate_ms(fns, 50, cold=True)
+        warm = alternate_ms(fns, 50)
+        # q, k, v read and q written (bf16), cos and sin (f32), the int8 rows
+        # and f32 scales written, the positions read; ~4 operations a value
+        nbytes = 2 * B * (2 * H + 2 * kvH) * hd + 2 * 4 * B * hd + 2 * B * kvH * (hd + 4) \
+            + (8 * B if per_slot else 0)
+        out[name] = e = with_bound(
+            {"bit_equal": same, "ms": t["kernel"], "warm_ms": warm["kernel"],
+             "plain_ms": t["plain"], "plain_warm_ms": warm["plain"], "library_ms": None,
+             "library_note": "no PyTorch call rotates, quantizes and writes an int8 cache"},
+            (nbytes, 4 * B * (H + 2 * kvH) * hd))
+        print(f"[5c K5 rope_append_int8] {name} L={L} B={B} S={S} H={H} kvH={kvH} "
+              f"{'per-slot' if per_slot else 'one'} position(s): bit-equal to plain {same} | "
+              f"kernel {t['kernel']:.4f} ms (L2 warm {warm['kernel']:.4f}), plain "
+              f"{t['plain']:.4f} ms (L2 warm {warm['plain']:.4f})" + _bound_text(e))
+        check(same, f"K5 differs from its plain version ({name})")
+        del kv, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 IMAGES_SEED = 0
 QUESTIONS = ["what is the text on the label?", "what is shown here?",
              "read the code on the tag", "what is the key phrase in the image?"]
@@ -983,6 +1048,7 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
 
     from attwarp_tpu_torch.extract.resize import resize_scale_device
     from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_
+    from attwarp_tpu_torch.kernels.rope_append import rope_append_int8
     from attwarp_tpu_torch.numerics.quant import int8_matmul
     from attwarp_tpu_torch.pipeline import AttWarpPipeline
     from attwarp_tpu_torch.warp.blend import mota_mask
@@ -997,7 +1063,7 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
 
     torch.cuda.reset_peak_memory_stats()
     backend.seconds.clear()
-    for fn in (*counters.values(), int8_matmul, scaled_softmax_):
+    for fn in (*counters.values(), int8_matmul, scaled_softmax_, rope_append_int8):
         fn.launches = 0
     t0 = time.perf_counter()
     res = pipe.run(images, QUESTIONS)
@@ -1006,7 +1072,11 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
     launches = {name: fn.launches for name, fn in counters.items()}
     launches["int8_matmul"] = int8_matmul.launches
     launches["scaled_softmax_"] = scaled_softmax_.launches
+    launches["rope_append_int8"] = rope_append_int8.launches
     k4_want = _k4_want(backend.model.cfg.vision, 2 * len(images), 2)
+    # K5: every decoder layer of both passes' 20 decode steps (int8 cache)
+    k5_want = 2 * pipe.max_new_tokens * backend.model.cfg.text.num_hidden_layers \
+        if backend.kv_quant else 0
     peak = torch.cuda.max_memory_allocated()
 
     p1, p2 = backend.seconds["pass1"], backend.seconds["pass2"]
@@ -1017,7 +1087,8 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
     print(f"[{tag}] launches: " + ", ".join(
         f"{name} {launches[name]} (expected {want[name]})" for name in counters)
         + f", int8_matmul {launches['int8_matmul']} (expected {int8_want})"
-        + f", scaled_softmax_ {launches['scaled_softmax_']} (expected {k4_want})")
+        + f", scaled_softmax_ {launches['scaled_softmax_']} (expected {k4_want})"
+        + f", rope_append_int8 {launches['rope_append_int8']} (expected {k5_want})")
     print(f"[{tag}] wall: total {total:.3f} s | pass 1 {p1:.3f} s | mask+warp "
           f"and resizes {total - p1 - p2:.3f} s | pass 2 {p2:.3f} s | "
           f"{4 / total:.3f} samples/s | peak memory {peak / 2**30:.2f} GiB")
@@ -1035,6 +1106,7 @@ def _drive(tag, backend, n_side, counters, want, int8_want=0):
         check(launches[name] == want[name], f"{name} launch count")
     check(launches["int8_matmul"] == int8_want, "int8_matmul launch count")
     check(launches["scaled_softmax_"] == k4_want, "scaled_softmax_ launch count")
+    check(launches["rope_append_int8"] == k5_want, "rope_append_int8 launch count")
 
     # the card's masks (from its maps) and warps (from its masks) against
     # the port's CPU path on the same inputs
@@ -1255,16 +1327,18 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
     Prints tokens/s, TTFT p50/p95, admission waves, peak memory and wall;
     checks the outputs and that K3 = layers x decode steps, K2 = layers x
     admission prefills (0 without ``+flash`` or in the chunked engine), K4
-    = the vision tower's blocks x its calls (``_k4_want``) and the int8
+    = the vision tower's blocks x its calls (``_k4_want``), K5 = layers x
+    decode steps (0 in the chunked engine or without ``+kv8``) and the int8
     product = ``int8_per_step`` x (prefills + decode steps). Returns
     (launch counts, the outputs, the run's figures)."""
     import numpy as np
     import torch
 
     from attwarp_tpu_torch.cli.serve import serve
+    from attwarp_tpu_torch.kernels.rope_append import rope_append_int8
     from attwarp_tpu_torch.numerics.quant import int8_matmul
 
-    counters = _tower_counters()
+    counters = {**_tower_counters(), "rope_append_int8": rope_append_int8}
     for fn in (*counters.values(), int8_matmul):
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1287,7 +1361,10 @@ def _serve_run(tag, backend, requests, slots, steps_per_tick=8, chunked_prefill=
             "scaled_softmax_": _k4_want(backend.model.cfg.vision, len(requests),
                                         len(requests) if chunked_prefill
                                         else eng.prefill_groups),
-            "int8_matmul": int8_per_step * (eng.prefill_groups + eng.decode_steps)}
+            "int8_matmul": int8_per_step * (eng.prefill_groups + eng.decode_steps),
+            # the chunked engine writes its tokens in its own fused step
+            "rope_append_int8": L * eng.decode_steps
+            if backend.kv_quant and not chunked_prefill else 0}
     buckets = sorted({-(-len(r["input_ids"]) // 64) * 64 for r in requests})
     admit_s = sum(end - start for start, end, _ in eng.admit_log)
     used = sum(sum(took.values()) for _, took in eng.tick_log)
@@ -3824,6 +3901,7 @@ def main(argv=None) -> int:
     k3 = _phase("4 K3", phase_k3, dev)
     k2 = _phase("5 K2", phase_k2, dev)
     k4 = _phase("5b K4", phase_k4, dev)
+    k5 = _phase("5c K5", phase_k5, dev)
     paths = {}
     paths["llava"], backend, base6 = _phase("6 llava", phase_slice, dev)
     paths["llava_serve"], paths["llava_chunked"], base8 = _phase(
@@ -3911,6 +3989,14 @@ def main(argv=None) -> int:
                     "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
                     **k4["qwen2vl_image"],
                     **{k: k4[k] for k in ("clip_batch8", "siglip_batch8")}})
+    # K5 likewise: the pipelines and the serve engines count it
+    k5_paths = {k: p["rope_append_int8"] for k, p in paths.items() if "rope_append_int8" in p}
+    kernels.append({"name": "rope_append_int8", "route": "cuda",
+                    "source": "attwarp_tpu_torch/csrc/rope_append_int8.cu",
+                    "replaces": "none: attwarp_tpu/models/llama.py::apply_rope and "
+                                "attwarp_tpu/numerics/quant.py::quantize_kv are plain jnp code",
+                    "launches": sum(k5_paths.values()), "launches_by_path": k5_paths,
+                    **k5["llava7b"], **{k: k5[k] for k in ("qwen7b", "llava7b_serve")}})
     # the int8 product is a library call (torch._int_mm), not a kernel of
     # the port: its own line, beside the kernels'
     print(json.dumps({"library_products": [{

@@ -390,6 +390,74 @@ def test_replayed_steps_match_eager_segments(cuda, family, monkeypatch):
                                                                else 1e-3)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["llava", "qwen"])
+def test_replayed_steps_equal_eager_steps_through_k5(cuda, family, monkeypatch):
+    """Kernel K5 writes every layer's new token in both forms of the step:
+    eight steps replayed from the graphs (after the first, eager) against
+    the same steps run eagerly over a cache of their own, from one prefill,
+    give the same logits, rows and caches bit for bit. K5's launches are
+    layers x steps in both (a replay's counted through
+    ``REPLAYED_COUNTERS``), and the eager rotary and append never run on
+    the card's int8 cache."""
+    from attwarp_tpu_torch.kernels.rope_append import rope_append_int8
+
+    model = _mini_model(family, cuda)
+    tcfg = model.cfg.text
+    params = model.params["llama" if family == "llava" else "text"]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, S, T, steps, spec, L = 3, 128, 40, 8, 1, tcfg.num_hidden_layers
+    kvh = tcfg.num_key_value_heads or tcfg.num_attention_heads
+    embeds = torch.randn((B, T, tcfg.hidden_size), generator=g, device=cuda,
+                         dtype=torch.bfloat16)
+    amask = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    amask[1, :7] = False
+    pos = torch.clamp(torch.cumsum(amask.long(), 1) - 1, min=0)
+    if family == "llava":
+        cos, sin = rope_cos_sin(pos, tcfg.head_dim, tcfg.rope_theta)
+    else:
+        cos, sin = qwen2vl.mrope_cos_sin(pos[None].expand(3, -1, -1), tcfg)
+    toks = torch.randint(0, tcfg.vocab_size, (steps, B), generator=g, device=cuda)
+    leased = llama.lease_kv_cache(tcfg, B, S, cuda, kvh)
+    own = init_quant_kv_cache(tcfg, B, S, cuda, kvh)
+    try:
+        for kv in (leased, own):
+            llama.decoder_prefill(params, tcfg, embeds, amask, cos, sin, S, kv_quant=True,
+                                  cache=kv)
+
+        def refused(*a, **k):
+            raise AssertionError("the eager rotary or append ran on the card's int8 cache")
+        monkeypatch.setattr(llama, "apply_rope", refused)
+        monkeypatch.setattr(llama, "append_token", refused)
+        full = torch.nn.functional.pad(amask, (0, S - T))
+        launches = {}
+        with profiling.tracing() as rec:
+            for step in range(steps):
+                full[:, T + step] = True
+                p = (amask.sum(1) + step)[:, None]
+                if family == "llava":
+                    c1, s1 = rope_cos_sin(p, tcfg.head_dim, tcfg.rope_theta)
+                else:
+                    c1, s1 = qwen2vl.mrope_cos_sin(p[None].expand(3, -1, -1), tcfg)
+                emb = llama.embed(params, toks[step])[:, None, :]
+                outs = []
+                for kv in (leased, own):
+                    n = rope_append_int8.launches
+                    outs.append(decoder_decode_step(params, tcfg, emb, kv, T + step, c1, s1,
+                                                    full, extract_layer=spec))
+                    launches[kv is leased] = launches.get(kv is leased, 0) + (
+                        rope_append_int8.launches - n)
+                torch.cuda.synchronize()
+                (lg, _, rg), (le, _, re) = outs
+                assert torch.equal(lg, le) and torch.equal(rg, re), step
+                for a, b in zip(leased, own):
+                    assert torch.equal(a, b), step
+        assert rec.counters.get("decode_graph.replays") == steps - 1
+        assert launches == {True: L * steps, False: L * steps}
+    finally:
+        llama.release_kv_cache(leased)
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["llava", "qwen"])
 def test_graphs_captured_once_per_key_across_calls_and_engines(cuda, family, monkeypatch):

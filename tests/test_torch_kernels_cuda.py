@@ -18,6 +18,7 @@ import torch
 from attwarp_tpu_torch.kernels.attn_softmax import scaled_softmax_, scaled_softmax_plain
 from attwarp_tpu_torch.kernels.decode_attn import decode_attn_int8, decode_attn_plain
 from attwarp_tpu_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
+from attwarp_tpu_torch.kernels.rope_append import rope_append_int8, rope_append_int8_plain
 from attwarp_tpu_torch.kernels.warp_resample import (
     backward_kernels_launched,
     k1_plan,
@@ -25,6 +26,7 @@ from attwarp_tpu_torch.kernels.warp_resample import (
     warp_resample_backward,
     warp_resample_backward_plain,
 )
+from attwarp_tpu_torch.models.llama import QuantKVCache, append_token, apply_rope
 from attwarp_tpu_torch.warp.resample import remap_bilinear_separable
 from attwarp_tpu_torch.warp.warp import warp_grid_maps
 
@@ -373,6 +375,137 @@ def test_k4_cuda_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         scaled_softmax_(torch.zeros((64, 4), device=cuda, dtype=torch.bfloat16).t(), 0.1)
 
+
+
+def _k5_case(dev, L, B, S, H, kvH, dtype, per_slot, seed, nan=False):
+    """A cache full of earlier tokens, the step's projections (a spread of
+    magnitudes, one head of zeros; with ``nan`` a NaN in a k head and in a v
+    head), rotary tables at positions that lie below the cache positions by
+    each row's left padding, and the cache positions: one int, or a (B,)
+    tensor of per-slot positions."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = 128
+    kv = QuantKVCache(
+        torch.randint(-127, 128, (L, B, S, kvH, hd), generator=g, device=dev, dtype=torch.int8),
+        torch.rand((L, B, S, kvH), generator=g, device=dev) * 0.02,
+        torch.randint(-127, 128, (L, B, S, kvH, hd), generator=g, device=dev, dtype=torch.int8),
+        torch.rand((L, B, S, kvH), generator=g, device=dev) * 0.02)
+    q = (torch.randn((B, 1, H * hd), generator=g, device=dev) * 3.0).to(dtype)
+    k = (torch.randn((B, 1, kvH * hd), generator=g, device=dev) * 3.0).to(dtype)
+    v = (torch.randn((B, 1, kvH * hd), generator=g, device=dev) * 0.3).to(dtype)
+    k[-1, 0, :hd] = 0
+    if nan:
+        k[0, 0, 5] = float("nan")
+        v[-1, 0, hd + 70] = float("nan")
+    cur = (torch.randint(S // 2, S, (B,), generator=g, device=dev) if per_slot else
+           torch.full((B,), S - 5, device=dev))
+    pad = torch.arange(B, device=dev) * 37 % 64
+    inv = 1.0 / (10000.0 ** (torch.arange(0, hd, 2, device=dev, dtype=torch.float32) / hd))
+    freqs = (cur - pad)[:, None, None].float() * inv
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return kv, q, k, v, torch.cos(emb), torch.sin(emb), cur if per_slot else S - 5
+
+
+def _bits(t):
+    """A tensor's bits, so that NaNs compare equal where their bits are."""
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,S,H,kvH,dtype,per_slot,nan", [
+    (32, 8, 704, 32, 32, torch.bfloat16, False, False),   # LLaVA-1.5-7B's two-pass step
+    (28, 8, 704, 28, 4, torch.bfloat16, False, False),    # Qwen2-VL-7B's (GQA 28/4)
+    (32, 16, 768, 32, 32, torch.bfloat16, True, False),   # the serve engine's 16 slots
+    (4, 4, 64, 32, 32, torch.float32, True, False),       # float32 activations (serve parity)
+    (4, 8, 64, 28, 4, torch.bfloat16, True, True),        # a NaN in a k and a v head
+], ids=["llava7b", "qwen7b", "llava7b_serve", "f32", "nan"])
+def test_k5_cuda_equals_the_eager_sequence(cuda, L, B, S, H, kvH, dtype, per_slot, nan):
+    """K5 against the eager PyTorch sequence it replaces on the card,
+    ``apply_rope`` then ``append_token``, and against its plain version: the
+    rotated q and every cache tensor bit for bit, in one launch. A NaN in a
+    head gives that head a NaN scale, as ``torch.amax`` does."""
+    kv, q, k, v, cos, sin, pos = _k5_case(cuda, L, B, S, H, kvH, dtype, per_slot, seed=L,
+                                          nan=nan)
+    layer, hd = L - 2, 128
+    eager = QuantKVCache(*(t.clone() for t in kv))
+    plain = QuantKVCache(*(t.clone() for t in kv))
+    want_q, want_k = apply_rope(q.reshape(B, 1, H, hd), k.reshape(B, 1, kvH, hd), cos, sin)
+    at = (torch.arange(B, device=cuda), pos) if per_slot else (slice(None), pos)
+    append_token(eager, layer, at, want_k[:, 0], v.reshape(B, kvH, hd))
+    plain_q = rope_append_int8_plain(q, k, v, cos, sin, plain, layer, pos)
+    before = rope_append_int8.launches
+    got_q = rope_append_int8(q, k, v, cos, sin, kv, layer, pos)
+    torch.cuda.synchronize()
+    assert rope_append_int8.launches == before + 1
+    assert got_q.shape == (B, 1, H, hd) and got_q.dtype == dtype
+    assert torch.equal(got_q, want_q) and torch.equal(plain_q, want_q)
+    for name, got, want, p in zip(("k_q", "k_s", "v_q", "v_s"), kv, eager, plain):
+        assert torch.equal(_bits(got), _bits(want)), name
+        assert torch.equal(_bits(p), _bits(want)), name
+    if nan:
+        at = pos if per_slot else torch.full((B,), pos, device=cuda)
+        assert kv.k_s[layer, 0, at[0], 0].isnan() and kv.v_s[layer, B - 1, at[B - 1], 1].isnan()
+
+
+@pytest.mark.cuda
+def test_k5_cuda_refuses_what_it_cannot_take(cuda):
+    kv, q, k, v, cos, sin, pos = _k5_case(cuda, 2, 2, 32, 4, 2, torch.bfloat16, True, seed=1)
+    with pytest.raises(TypeError):
+        rope_append_int8(q.half(), k.half(), v.half(), cos, sin, kv, 0, pos)
+    with pytest.raises(ValueError):
+        rope_append_int8(q, k, v, cos, sin, kv, 2, pos)           # no layer 2
+    with pytest.raises(ValueError):
+        rope_append_int8(q, k, v, cos, sin, kv, 0, 32)            # no slot 32
+    with pytest.raises(ValueError):
+        rope_append_int8(q, k, v, cos, sin, kv, 0, pos.int())     # int32 positions
+    with pytest.raises(ValueError):
+        rope_append_int8(q, k, v, cos.double(), sin, kv, 0, pos)
+    small = QuantKVCache(*(t[..., :64].contiguous() if t.ndim == 5 else t for t in kv))
+    with pytest.raises(ValueError):
+        rope_append_int8(q[..., :256], k[..., :128], v[..., :128], cos[..., :64],
+                         sin[..., :64], small, 0, pos)             # head_dim 64
+
+
+_K5_OUTSIDE = """
+import torch
+from attwarp_tpu_torch.kernels.rope_append import rope_append_int8
+from attwarp_tpu_torch.models.llama import QuantKVCache
+dev, L, B, S, H, kvH = "cuda", 2, 4, 32, 4, 2
+kv = QuantKVCache(torch.zeros((L, B, S, kvH, 128), dtype=torch.int8, device=dev),
+                  torch.zeros((L, B, S, kvH), device=dev),
+                  torch.zeros((L, B, S, kvH, 128), dtype=torch.int8, device=dev),
+                  torch.zeros((L, B, S, kvH), device=dev))
+q = torch.ones((B, 1, H * 128), dtype=torch.bfloat16, device=dev)
+k = torch.ones((B, 1, kvH * 128), dtype=torch.bfloat16, device=dev)
+v = torch.ones_like(k)
+cos = torch.ones((B, 1, 128), device=dev)
+sin = torch.zeros((B, 1, 128), device=dev)
+pos = torch.tensor([3, 4, {p}, 5], device=dev)
+try:
+    rope_append_int8(q, k, v, cos, sin, kv, 1, pos)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("stopped:", str(e).splitlines()[0])
+else:
+    print("wrote")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [32, -1], ids=["past_the_end", "negative"])
+def test_k5_cuda_stops_at_a_position_outside_the_cache(cuda, p):
+    """A per-row position outside [0, S) stops the kernel with a device
+    error, as ATen's index write does, rather than leave the row's slot
+    stale for the attention to read. The error ends the process's CUDA
+    context, so the call runs in a child process."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _K5_OUTSIDE.format(p=p)], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.strip().startswith("stopped:"), (out.stdout, out.stderr[-2000:])
 
 @pytest.mark.cuda
 def test_mota_mask_cuda_equals_the_cpu(cuda):
